@@ -32,13 +32,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import hopper_kernels
 from .kernels import INT32_MAX
 
 I32 = torch.int32
 
-# Working-set bound for the per-round [chains, witnesses, coords]
-# compare cube: chains are processed in chunks so each [cc, n, n] block
-# stays under ~64M elements.
+# The JAX package's working-set bound for the per-round [chains,
+# witnesses, coords] compare cube and its chain-chunk schedule. The
+# port's probe builds no cube (one gathered launch, whose plain version
+# chunks rows under the same bound); the schedule is kept so that it
+# stays checked against the JAX package's.
 _CUBE_ELEMS = 1 << 26
 
 
@@ -69,12 +72,15 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
     indicators are monotone along a chain, "sm-th smallest over w of
     the per-w first position" equals "first position whose event
     strongly sees >= sm witnesses" — so ceil(log2 K)+1 probe steps,
-    each a dense compare-and-count over a chunked [cc, w, i] cube."""
+    each one gathered TALLY launch (hopper_kernels.strongly_see_gathered)
+    over the n chains' probe rows; the skip correction is one more."""
     dev = la.device
     k_cap = chain_la.shape[1]
-    cc = n // _chain_chunks(n)
     probes = max(int(np.ceil(np.log2(max(k_cap, 2)))), 1) + 1
     lanes = torch.arange(n, device=dev)
+    chain_rows = chain_la.view(n * k_cap, n)  # row c*K + k = chain_la[c, k]
+    chain_row0 = torch.arange(n, dtype=I32, device=dev) * k_cap
+    wrow0 = torch.zeros((n,), dtype=I32, device=dev)  # one witness row
 
     def step(rho, wt_prev, fr_prev):
         # k1: first chain position whose propagated root contribution
@@ -83,22 +89,17 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         k1 = (chain_rbase < rho).sum(1, dtype=I32)
 
         # k2: first position strongly seeing >= sm of wt_prev.
-        wt_valid = wt_prev >= 0
-        fdw = fd[torch.where(wt_valid, wt_prev, 0)]  # [w, i]
-        fdw_row = torch.where(wt_valid[:, None], fdw, INT32_MAX)
+        wt_tab = wt_prev[None]  # [1, n] witness row, -1 = none
 
         def sees_sm(mid):
             """ok[c] = chain_la[c, mid[c]] strongly sees >= sm valid
-            witnesses (positions beyond the chain are INT32_MAX rows
-            and are guarded by the callers' chain_len clamp)."""
-            x_row = chain_la[lanes, torch.clamp(mid, 0, k_cap - 1)]
-            cnt = torch.zeros((n,), dtype=I32, device=dev)
-            for g in range(n // cc):
-                c0 = g * cc
-                x_g = x_row[c0:c0 + cc]
-                ss = (x_g[:, None, :] >= fdw_row[None, :, :]).sum(-1, dtype=I32) >= sm
-                cnt[c0:c0 + cc] = ss.sum(-1, dtype=I32)
-            return cnt >= sm
+            witnesses. A position past the chain's end reads an
+            INT32_MAX row, which would strongly see any witness; the
+            callers' guard mid < hi <= chain_len drops those rows."""
+            xs = chain_row0 + torch.clamp(mid, 0, k_cap - 1)
+            tally = hopper_kernels.strongly_see_gathered(
+                chain_rows, xs, fd, wt_tab, wrow0, sm, "tally")
+            return tally >= sm
 
         # search in [0, chain_len]; hi == chain_len means no position
         lo = torch.zeros((n,), dtype=I32, device=dev)
@@ -116,14 +117,14 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         cand = torch.where(
             cand_valid, chain[lanes, torch.clamp(fr, 0, k_cap - 1)], -1)
 
-        # Skip correction: candidate's true round exceeds rho?
+        # Skip correction: candidate's true round exceeds rho? The
+        # invalid candidates (-1) are masked as witnesses; as rows their
+        # tally is dropped by wt_row's cand_valid.
         safe = torch.where(cand_valid, cand, 0)
-        la_c = la[safe]
-        fd_c = fd[safe]
-        ss_cc = (la_c[:, None, :] >= fd_c[None, :, :]).sum(-1, dtype=I32) >= sm
-        ss_cc = ss_cc & cand_valid[None, :] & cand_valid[:, None]
+        tally = hopper_kernels.strongly_see_gathered(
+            la, safe, fd, cand[None], wrow0, sm, "tally")
         rb_c = torch.where(cand_valid, rbase[safe], -1)
-        skip = (rb_c >= rho + 1) | (ss_cc.sum(-1, dtype=I32) >= sm)
+        skip = (rb_c >= rho + 1) | (tally >= sm)
         wt_row = torch.where(cand_valid & ~skip, cand, -1)
         return wt_row, fr, fr_c, cand_valid.any()
 

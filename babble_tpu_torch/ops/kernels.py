@@ -104,6 +104,34 @@ def strongly_see_counts_chunked(la_rows, fd_p):
     return acc
 
 
+def strongly_see_gathered_ref(x_tab, xs, f_tab, w_tab, wrow, sm, mode):
+    """c[m, w] = #{i : x_tab[xs[m], i] >= f_tab[w_tab[wrow[m], w], i]}
+    over the witness slots with w_tab[wrow[m], w] >= 0, thresholded at
+    sm: mode "matrix" gives uint8 [M, W] = (c >= sm) & witness valid,
+    mode "tally" int32 [M] = #{valid w : c >= sm}. One gather and
+    broadcast compare-sum, chunked over the rows so the [M, W, n]
+    intermediates stay bounded. This is the plain version of the CUDA
+    kernel (hopper_kernels.strongly_see_gathered)."""
+    m, w = xs.shape[0], w_tab.shape[1]
+    dev = x_tab.device
+    if mode == "matrix":
+        out = torch.zeros((m, w), dtype=torch.uint8, device=dev)
+    else:
+        out = torch.zeros((m,), dtype=I32, device=dev)
+    if m == 0 or w == 0:
+        return out
+    mc = chunk_width(m, w * x_tab.shape[1], _bcast_budget(dev))
+    for g in range(-(-m // mc)):
+        m0 = _clamped(g, mc, m)
+        ids = w_tab[wrow[m0:m0 + mc]]  # [mc, W] witness ids
+        valid = ids >= 0
+        f = f_tab[torch.where(valid, ids, 0)]  # [mc, W, n]
+        x = x_tab[xs[m0:m0 + mc]]  # [mc, n]
+        hit = ((x[:, None, :] >= f).sum(-1, dtype=I32) >= sm) & valid
+        out[m0:m0 + mc] = hit if mode == "matrix" else hit.sum(-1, dtype=I32)
+    return out
+
+
 def first_descendant_cube(la, chain, chain_len, *, n):
     """pos2k[c, i, t] = first position k on creator c's chain whose
     event descends from chain i's position t (INT32_MAX when no such
@@ -158,13 +186,17 @@ def compute_rounds(self_parent, other_parent, creator, index, la, fd, levels,
 
     stronglySee(x, w) (hashgraph.go:179-198) is evaluated only against
     the <= n candidate witnesses of x's parent round (each creator
-    contributes at most one witness per round) — [W, n, n] compares per
-    level, chunked over the level width.
+    contributes at most one witness per round): one gathered TALLY
+    launch per level (hopper_kernels.strongly_see_gathered), each row
+    reading its parent round's row of the working witness table.
 
     Returns (rounds[E], witness[E] bool, wt[r, n] event ids, -1 empty).
     Row r of the working table is the scatter dump: every lane that
     does not write a witness writes -1 there, so the duplicate indices
     agree on the value."""
+    # imported here: hopper_kernels imports this module's plain versions
+    from .hopper_kernels import strongly_see_gathered
+
     e = la.shape[0]
     dev = la.device
     la_p = torch.cat([la, torch.full((1, n), -1, dtype=I32, device=dev)], 0)
@@ -176,8 +208,6 @@ def compute_rounds(self_parent, other_parent, creator, index, la, fd, levels,
     sp_all = self_parent[sids_all]
     op_all = other_parent[sids_all]
     cr_all = creator[sids_all]
-    w = levels.shape[1]
-    wc = chunk_width(w, n * n)
 
     for l in range(levels.shape[0]):
         valid, sids = valid_all[l], sids_all[l]
@@ -193,17 +223,8 @@ def compute_rounds(self_parent, other_parent, creator, index, la, fd, levels,
         pr = torch.where(use_op, op_round, sp_round)
         pr_root = torch.where(use_op, op < 0, sp < 0)
         # roundInc: count parent-round witnesses strongly seen.
-        cand = wt[torch.clamp(pr, 0, r - 1)]  # [W, n]
-        la_x = la_p[sids]  # [W, n]
-        ss_cnt = torch.zeros((w,), dtype=I32, device=dev)
-        for g in range(-(-w // wc)):
-            w0 = _clamped(g, wc, w)
-            la_g = la_x[w0:w0 + wc]
-            cand_g = cand[w0:w0 + wc]
-            cv_g = cand_g >= 0
-            fd_g = fd[torch.where(cv_g, cand_g, 0)]  # [wc, n, n]
-            ss_g = ((la_g[:, None, :] >= fd_g).sum(-1, dtype=I32) >= sm) & cv_g
-            ss_cnt[w0:w0 + wc] = ss_g.sum(-1, dtype=I32)
+        ss_cnt = strongly_see_gathered(
+            la_p, sids, fd, wt, torch.clamp(pr, 0, r - 1), sm, "tally")
         inc = pr_root | (ss_cnt >= sm)
         r_new = pr + inc.to(I32)
         # witness: sits on the Root, or exceeds the self-parent's round
@@ -230,13 +251,15 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r):
     reference's early-break bookkeeping; votes on already-decided slots
     are computed but gated out of the fame table.
 
-    The pairwise strongly-see count of each voting round is the CUDA
-    kernel on a CUDA device (one launch per round j in [1, r)) and its
-    plain version on the CPU.
+    The strongly-see matrices of all voting rounds — round j's
+    witnesses against round j-1's — depend on the witness table alone,
+    never on the votes, so one gathered MATRIX launch
+    (hopper_kernels.strongly_see_gathered) gives them all at the first
+    round; past 2^26 bytes of output they come in chunks of rounds.
 
     Returns famous[r, n] trilean (0 undefined / 1 true / 2 false)."""
-    # imported here: hopper_kernels imports this module's plain version
-    from .hopper_kernels import strongly_see_counts
+    # imported here: hopper_kernels imports this module's plain versions
+    from .hopper_kernels import strongly_see_gathered
 
     dev = la.device
     wt_valid = wt >= 0
@@ -245,18 +268,21 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r):
     rx = torch.arange(r, dtype=I32, device=dev)[:, None].expand(r, n)
     famous = torch.zeros((r, n), dtype=I32, device=dev)
     v_prev = torch.zeros((n, r, n), dtype=torch.bool, device=dev)
+    per_launch = chunk_width(r - 1, n * n)  # voting rounds per launch
 
     for j in range(1, r):
-        y = wt[j]
-        y_valid = y >= 0
-        ys = torch.where(y_valid, y, 0)
-        la_y = la[ys]  # [n, n]
-        see_v = la_y[:, None, :] >= idx_x[None, :, :]  # [n(y), r, n(cx)]
-        wp = wt[j - 1]
-        wp_valid = wp >= 0
-        fd_p = fd[torch.where(wp_valid, wp, 0)]  # [n, n]
-        ss_cnt = strongly_see_counts(la_y, fd_p)
-        ss = (ss_cnt >= sm) & wp_valid[None, :]
+        if (j - 1) % per_launch == 0:
+            # ss_blk[t][y, x]: round j+t's witness y strongly sees round
+            # j+t-1's witness x (empty slots: y reads row 0 and is gated
+            # by y_valid below; x is masked by the kernel)
+            hi = min(j + per_launch, r)
+            xs = wt_safe[j:hi].reshape(-1)
+            wrow = torch.arange(j - 1, hi - 1, dtype=I32, device=dev).repeat_interleave(n)
+            ss_blk = strongly_see_gathered(la, xs, fd, wt, wrow, sm, "matrix").view(
+                torch.bool).view(hi - j, n, n)
+        ss = ss_blk[(j - 1) % per_launch]
+        y_valid, ys = wt_valid[j], wt_safe[j]
+        see_v = la[ys][:, None, :] >= idx_x[None, :, :]  # [n(y), r, n(cx)]
         # 0/1 float32 product: tallies are <= n < 2^24, exact in fp32
         # with TF32 off (devices.py).
         yays = (ss.to(torch.float32) @ v_prev.reshape(n, r * n).to(torch.float32)
