@@ -1,9 +1,11 @@
-"""The one-shot consensus pipeline on PyTorch (counterpart of
-babble_tpu/ops): DAG tensors, the per-stage kernels, block closure,
-round frontier, the pipeline entry point and the host finish."""
+"""The consensus pipeline on PyTorch (counterpart of babble_tpu/ops):
+DAG tensors, the per-stage kernels, block closure, round frontier, the
+one-shot pipeline entry point and its host finish, and the live node's
+incremental engine."""
 
 from .dag import DagTensors, dag_from_arrays, synthetic_dag
 from .engine import consensus_order
+from .incremental import IncrementalEngine, PendingPass, RunDelta
 from .pipeline import run_pipeline
 
 __all__ = [
@@ -11,5 +13,8 @@ __all__ = [
     "dag_from_arrays",
     "synthetic_dag",
     "consensus_order",
+    "IncrementalEngine",
+    "PendingPass",
+    "RunDelta",
     "run_pipeline",
 ]

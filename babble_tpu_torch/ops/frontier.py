@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import hopper_kernels
-from .kernels import INT32_MAX
+from .kernels import INT32_MAX, witness_rows
 
 I32 = torch.int32
 
@@ -73,7 +73,10 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
     the per-w first position" equals "first position whose event
     strongly sees >= sm witnesses" — so ceil(log2 K)+1 probe steps,
     each one gathered TALLY launch (hopper_kernels.strongly_see_gathered)
-    over the n chains' probe rows; the skip correction is one more."""
+    over the n chains' probe rows; the skip correction is one more.
+    `fd` is dense [E, n] or a row view (kernels.witness_rows): a view's
+    rows are gathered once per round for the probes (wt_prev's n rows)
+    and once for the skip correction (the candidates')."""
     dev = la.device
     k_cap = chain_la.shape[1]
     probes = max(int(np.ceil(np.log2(max(k_cap, 2)))), 1) + 1
@@ -89,7 +92,7 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         k1 = (chain_rbase < rho).sum(1, dtype=I32)
 
         # k2: first position strongly seeing >= sm of wt_prev.
-        wt_tab = wt_prev[None]  # [1, n] witness row, -1 = none
+        f_tab, wt_tab = witness_rows(fd, wt_prev[None])  # [1, n] row, -1 none
 
         def sees_sm(mid):
             """ok[c] = chain_la[c, mid[c]] strongly sees >= sm valid
@@ -98,7 +101,7 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
             callers' guard mid < hi <= chain_len drops those rows."""
             xs = chain_row0 + torch.clamp(mid, 0, k_cap - 1)
             tally = hopper_kernels.strongly_see_gathered(
-                chain_rows, xs, fd, wt_tab, wrow0, sm, "tally")
+                chain_rows, xs, f_tab, wt_tab, wrow0, sm, "tally")
             return tally >= sm
 
         # search in [0, chain_len]; hi == chain_len means no position
@@ -121,8 +124,9 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         # invalid candidates (-1) are masked as witnesses; as rows their
         # tally is dropped by wt_row's cand_valid.
         safe = torch.where(cand_valid, cand, 0)
+        f_tab, cand_tab = witness_rows(fd, cand[None])
         tally = hopper_kernels.strongly_see_gathered(
-            la, safe, fd, cand[None], wrow0, sm, "tally")
+            la, safe, f_tab, cand_tab, wrow0, sm, "tally")
         rb_c = torch.where(cand_valid, rbase[safe], -1)
         skip = (rb_c >= rho + 1) | (tally >= sm)
         wt_row = torch.where(cand_valid & ~skip, cand, -1)
@@ -153,6 +157,37 @@ def frontier_chunk(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         act_out[t] = any_cand
         wt_prev, fr_prev = wt_row, fr
     return wt_out, fr_out, act_out, wt_prev, fr_prev
+
+
+def frontier_sweep_impl(chain_la, chain_rbase, chain_len, la, fd, rbase,
+                        chain, wt_tab, fr_tab, wt_prev, fr_prev, t0,
+                        rho_min, *, n, sm, rcap):
+    """Run rounds rho_min+t for t in [t0, rcap) until no chain has a
+    candidate, writing rows t of the [rcap, n] tables in place (rows
+    below t0 are the frozen warm-start prefix). Returns (wt_tab, fr_tab,
+    t_end); t_end == rcap with activity still pending means the caller
+    must re-run with a larger bucket.
+
+    The JAX package runs this as a device while-loop; here the host
+    reads each round's any-candidate flag, one synchronisation per
+    round swept (t_end - t0 of them). t0 and rho_min are host ints.
+    `fd` is dense or a row view (see make_round_step)."""
+    step = make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase,
+                           chain, n=n, sm=sm)
+    t = t0
+    while t < rcap:
+        wt_row, fr, fr_c, any_cand = step(rho_min + t, wt_prev, fr_prev)
+        wt_tab[t] = wt_row
+        fr_tab[t] = fr_c
+        wt_prev, fr_prev = wt_row, fr
+        t += 1
+        if not bool(any_cand):
+            break
+    return wt_tab, fr_tab, t
+
+
+# The JAX package's jitted name for the same sweep; eager here.
+frontier_sweep = frontier_sweep_impl
 
 
 def rounds_from_frontier(frontier, creator, index, self_parent, rho_min, *, n):

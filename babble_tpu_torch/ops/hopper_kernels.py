@@ -14,7 +14,8 @@ points reach it:
   [M, W] strongly-see matrix, "tally": the per-row number of witnesses
   strongly seen). Every strongly-see site of the pipeline calls it:
   decide_fame and compute_rounds (ops/kernels.py), the frontier probe
-  and the skip correction (ops/frontier.py).
+  and the skip correction (ops/frontier.py), which the incremental
+  engine (ops/incremental.py) reaches too.
 
 The library is compiled with nvcc for sm_90a into build/kernels/ at the
 repository root on first use (a few seconds: it has a plain C entry

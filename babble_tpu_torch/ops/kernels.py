@@ -132,6 +132,24 @@ def strongly_see_gathered_ref(x_tab, xs, f_tab, w_tab, wrow, sm, mode):
     return out
 
 
+def witness_rows(fd, wt):
+    """(f_tab, w_tab) for strongly_see_gathered's witness side, from the
+    first descendants `fd` and a table `wt` of witness ids (-1 none).
+
+    A dense fd [E, n] is the table itself and wt names its rows. A row
+    view (any object with fd[ids] -> [*ids.shape, n] rows, such as the
+    incremental engine's view of its rank cube) never materializes
+    [E, n]: the rows of the witnesses in wt are gathered once into a
+    compact table and wt is renumbered to it, -1 kept. The kernel
+    computes the same counts from either form."""
+    if isinstance(fd, torch.Tensor):
+        return fd, wt
+    valid = wt >= 0
+    f_tab = fd[torch.where(valid, wt, 0).reshape(-1)].contiguous()
+    slots = torch.arange(wt.numel(), dtype=I32, device=wt.device).view(wt.shape)
+    return f_tab, torch.where(valid, slots, -1)
+
+
 def first_descendant_cube(la, chain, chain_len, *, n):
     """pos2k[c, i, t] = first position k on creator c's chain whose
     event descends from chain i's position t (INT32_MAX when no such
@@ -256,6 +274,8 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r):
     never on the votes, so one gathered MATRIX launch
     (hopper_kernels.strongly_see_gathered) gives them all at the first
     round; past 2^26 bytes of output they come in chunks of rounds.
+    `fd` is dense or a row view (witness_rows): the launch reads the
+    window's witness rows either way.
 
     Returns famous[r, n] trilean (0 undefined / 1 true / 2 false)."""
     # imported here: hopper_kernels imports this module's plain versions
@@ -269,6 +289,7 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r):
     famous = torch.zeros((r, n), dtype=I32, device=dev)
     v_prev = torch.zeros((n, r, n), dtype=torch.bool, device=dev)
     per_launch = chunk_width(r - 1, n * n)  # voting rounds per launch
+    f_tab, w_tab = witness_rows(fd, wt)
 
     for j in range(1, r):
         if (j - 1) % per_launch == 0:
@@ -278,7 +299,7 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r):
             hi = min(j + per_launch, r)
             xs = wt_safe[j:hi].reshape(-1)
             wrow = torch.arange(j - 1, hi - 1, dtype=I32, device=dev).repeat_interleave(n)
-            ss_blk = strongly_see_gathered(la, xs, fd, wt, wrow, sm, "matrix").view(
+            ss_blk = strongly_see_gathered(la, xs, f_tab, w_tab, wrow, sm, "matrix").view(
                 torch.bool).view(hi - j, n, n)
         ss = ss_blk[(j - 1) % per_launch]
         y_valid, ys = wt_valid[j], wt_safe[j]

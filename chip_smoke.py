@@ -37,11 +37,34 @@ line is not printed):
               kernel;
 8. northstar — synthetic_dag(1024, 100_000, seed=2) once with the
               default engine: time, decided count (44,770), launches
-              by site.
+              by site;
+9. sustained — the live node's incremental engine (IncrementalEngine,
+              n = 64, capacity 65,536, block 512, k_capacity 1,024) fed
+              synthetic_dag(64, 50_000, seed=3) in batches of 4,096
+              with pipelined append / collect / dispatch, as bench.py's
+              sustained stage drives it: events/s total and steady,
+              phase shares, launches by site, host reads and redos per
+              pass; its final state equal to the one-shot run_pipeline
+              on the card and to the JAX reference package's digest
+              (GOLDEN_SUSTAINED_*);
+10. sustained_profile — the same engine with run() per batch: phase
+              shares of passes 3-6 with synchronised timers; pass 7
+              under torch.cuda.set_sync_debug_mode("warn"), which must
+              flag exactly one host read per frontier round; pass 8 (a
+              steady pass) under torch.profiler: the card's busy share,
+              device time by kernel, host waits;
+11. northstar_incremental — the engine at n = 1024 (capacity 131,072,
+              block 512, k_capacity 512), run() per batch of 4,096 over
+              the north-star DAG: time, peak memory, launches by site,
+              44,770 decided and the state equal to the one-shot run.
 
-Lines before the last: a {"kernels": [...]} line (launches on the main
-path, max error, times and bound), a {"results": ...} line, and the
-nvidia-smi line. The last line is {"ok": true, "device": {...}}.
+Each path that launches the kernel (the one-shot main path, sustained,
+northstar_incremental) runs with every launch count set to 0 just
+before it and read just after, and fails when the kernel was not
+launched. Lines before the last: a {"kernels": [...]} line (launches on
+the engine's path and on each path, max error, times and bound), a
+{"results": ...} line, and the nvidia-smi line. The last line is
+{"ok": true, "device": {...}}.
 
 Exits nonzero without a result when no CUDA device is available, and
 when run outside the repository (the port is not importable there).
@@ -75,6 +98,19 @@ HEADLINE = (64, 50_000, 1)
 HEADLINE_DECIDED = 47_659
 NORTHSTAR = (1024, 100_000, 2)
 NORTHSTAR_DECIDED = 44_770
+# The JAX reference package's IncrementalEngine driven by the sustained
+# loop (phase_sustained) on synthetic_dag(64, 50_000, seed=3), on the
+# CPU. INPUT is dag_digest of the DAG, OUTPUT the digest of the final
+# engine state (engine_state); the JAX package's one-shot run_pipeline
+# gives the same state on that DAG.
+GOLDEN_SUSTAINED_INPUT = "cf72c67e8f934420b8c4c573d9f504a2aab7a0fb8b62eb56b57d882ecb5b00b9"
+GOLDEN_SUSTAINED_OUTPUT = "7ab267e5879b54e80675a08a12d074bf8000d8d2f79d1a530641c2d41cc41b48"
+SUSTAINED = (64, 50_000, 3)
+SUSTAINED_DECIDED = 47_935
+SUSTAINED_ENGINE = dict(capacity=65536, block=512, k_capacity=1024)
+NORTHSTAR_ENGINE = dict(capacity=131072, block=512, k_capacity=512)
+ENGINE_BATCH = 4096
+PROFILED_BATCH = 8  # the steady pass sustained_profile traces
 KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
 # The gathered entry at the main path's shapes: (name, M rows, W witness
 # slots, n, R witness rows, how rows name witness rows).
@@ -83,16 +119,24 @@ KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
 # - frontier_probe: one probe (or skip correction) at the headline;
 # - northstar_level: compute_rounds on a 1024-wide level at n = 1024,
 #   rows naming two adjacent parent rounds at random, as a level's do;
-# - ragged: nothing a multiple of the tile, five witness rows mixed.
+# - ragged: nothing a multiple of the tile, five witness rows mixed;
+# - engine_fame_window / northstar_engine_fame: the incremental engine's
+#   fame launch over a 16-round window (15 voting rounds) at n = 64 and
+#   n = 1024, against the window's compact witness-row table;
+# - northstar_engine_probe: the engine's frontier probe at n = 1024.
 GATHERED_SHAPES = [
     ("fame_batch", 127 * 64, 64, 64, 127, "tiles"),
     ("frontier_probe", 64, 64, 64, 1, "one"),
     ("northstar_level", 1024, 1024, 1024, 7, "two"),
     ("ragged", 130, 200, 100, 5, "mixed"),
+    ("engine_fame_window", 15 * 64, 64, 64, 15, "tiles"),
+    ("northstar_engine_fame", 15 * 1024, 1024, 1024, 15, "tiles"),
+    ("northstar_engine_probe", 1024, 1024, 1024, 1, "one"),
 ]
 # The pipeline functions that call strongly_see_gathered, by site.
 SITES = {"decide_fame": "fame", "sees_sm": "frontier_probe",
          "step": "skip_correction", "compute_rounds": "compute_rounds"}
+ENGINE_SITES = ("fame", "frontier_probe", "skip_correction")
 
 # The least time the H100 SXM needs for the compare-count. Operations:
 # one compare and one add per (x, w, i), two int32 operations, at 64
@@ -524,7 +568,6 @@ def phase_profile(rec, device="cuda"):
     intervals), device time by kernel, and B1's device time per launch.
     Where the profiler records no device activity, the numbers are
     written as not measured."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from babble_tpu_torch.ops.dag import synthetic_dag
@@ -534,11 +577,34 @@ def phase_profile(rec, device="cuda"):
     _timed_run(dag, s_rank, "auto", device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s, _, _ = _timed_run(dag, s_rank, "auto", device)
-    kern = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    if not kern:
-        rec["profile"] = {"wall_s": wall_s, "device_busy_share": "not measured"}
+    rec["profile"] = p = {"engine": "auto", **profile_summary(prof, wall_s)}
+    if "device_busy_s" not in p:
         print("profile: the profiler recorded no device activity: not measured")
         return
+    print(f"profile (headline, engine=auto, profiled run {wall_s:.3f} s): "
+          f"{p['kernel_launches']} kernels, device busy {p['device_busy_s']:.3f} s "
+          f"= {p['device_busy_share']:.1%} of wall; strongly_see {p['strongly_see']}")
+    for row in p["top_kernels_us"]:
+        print(f"  {row['us'] / 1e3:9.2f} ms  x{row['count']:6d}  {row['name']}")
+
+
+def profile_summary(prof, wall_s) -> dict:
+    """The card's busy time (union of kernel intervals) and share of
+    `wall_s`, device time by kernel, and B1's device time per launch,
+    from a torch.profiler run; "not measured" where the profiler
+    recorded no device activity."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    kern = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+    # Host waits on the card, as the CUDA runtime calls that make them.
+    syncs = {}
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA and "Synchronize" in ev.name:
+            syncs[ev.name] = syncs.get(ev.name, 0) + 1
+    if not kern:
+        return {"wall_s": wall_s, "device_busy_share": "not measured",
+                "sync_calls": syncs}
     spans = sorted((ev.time_range.start, ev.time_range.end) for ev in kern)
     busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, t in spans[1:]:
@@ -555,17 +621,11 @@ def phase_profile(rec, device="cuda"):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     ss = {k: {"us_per_launch": v[0] / v[1], "count": v[1]}
           for k, v in by_name.items() if "strongly_see_kernel" in k}
-    rec["profile"] = {
-        "engine": "auto", "wall_s": wall_s, "device_busy_s": busy_us * 1e-6,
+    return {
+        "wall_s": wall_s, "device_busy_s": busy_us * 1e-6,
         "device_busy_share": busy_us * 1e-6 / wall_s, "kernel_launches": len(kern),
-        "strongly_see": ss,
+        "strongly_see": ss, "sync_calls": syncs,
         "top_kernels_us": [{"name": k[:120], "us": v[0], "count": v[1]} for k, v in top]}
-    p = rec["profile"]
-    print(f"profile (headline, engine=auto, profiled run {wall_s:.3f} s): "
-          f"{len(kern)} kernels, device busy {p['device_busy_s']:.3f} s "
-          f"= {p['device_busy_share']:.1%} of wall; strongly_see {ss}")
-    for row in p["top_kernels_us"]:
-        print(f"  {row['us'] / 1e3:9.2f} ms  x{row['count']:6d}  {row['name']}")
 
 
 def phase_northstar(rec, device="cuda"):
@@ -590,6 +650,7 @@ def phase_northstar(rec, device="cuda"):
     if decided != NORTHSTAR_DECIDED or rr.max() > max_round:
         raise AssertionError(f"northstar: decided={decided} != {NORTHSTAR_DECIDED}")
     check_sites(dag, "wavefront", launches, sites, _r_small(dag, rounds))
+    rec["_northstar_out"] = out  # held against northstar_incremental
     rec["northstar"] = {
         "n": n, "e": e, "seed": seed, "engine": "wavefront", "dag_gen_s": gen_s,
         "levels": list(dag.levels.shape), "seconds": sec, "decided": decided,
@@ -605,12 +666,336 @@ def phase_northstar(rec, device="cuda"):
         {k: round(v, 4) for k, v in rec["northstar"]["stages_s"].items()}))
 
 
+def engine_state(eng, e):
+    """The engine's final state, as GOLDEN_SUSTAINED_OUTPUT digests it."""
+    return [eng.rounds[:e], eng.witness[:e], eng.witness_table(), eng.famous,
+            eng.rr[:e], eng.cts_ns[:e]]
+
+
+def engine_vs_one_shot(eng, out, e) -> list:
+    """Names of the one-shot outputs (rounds, witness, wt, famous, rr,
+    cts on the host) the engine's state disagrees with. The DAG's
+    timestamps are its event ids, so a consensus-timestamp rank is the
+    engine's ns, and rank -1 (Go's zero time) its CTS_SENTINEL."""
+    from babble_tpu_torch.ops.incremental import CTS_SENTINEL
+
+    rounds, wit, wt, famous, rr, cts = out
+    wt_abs = eng.witness_table()
+    rt = wt_abs.shape[0]
+    dec = rr >= 0
+    checks = {
+        "rounds": (eng.rounds[:e] == rounds).all(),
+        "witness": (eng.witness[:e] == wit).all(),
+        "wt": (wt_abs == wt[:rt]).all() and (wt[rt:] == -1).all(),
+        "famous": eng.famous.shape[0] == rt and (eng.famous == famous[:rt]).all(),
+        "rr": (eng.rr[:e] == rr).all(),
+        "cts": (eng.cts_ns[:e][dec]
+                == np.where(cts < 0, CTS_SENTINEL, cts.astype(np.int64))[dec]).all(),
+    }
+    return [k for k, ok in checks.items() if not ok]
+
+
+def engine_batches(dag, e, bs=ENGINE_BATCH):
+    """The append_batch arguments of each batch, timestamps = event ids
+    (as bench.py feeds the engine)."""
+    for k in range(0, e, bs):
+        hi = min(k + bs, e)
+        yield (dag.self_parent[k:hi], dag.other_parent[k:hi], dag.creator[k:hi],
+               dag.index[k:hi], dag.coin[k:hi], np.arange(k, hi))
+
+
+def check_engine_sites(name, launches, sites) -> None:
+    """An engine path launches the gathered kernel from the frontier
+    probe, the skip correction and fame, and nothing else."""
+    if set(sites) != set(ENGINE_SITES) or min(sites.values()) == 0:
+        raise AssertionError(f"{name}: launches by site {sites}, expected {ENGINE_SITES}")
+    if launches["counts"] != 0 or launches["matrix"] != sites["fame"] or \
+            launches["tally"] != sites["frontier_probe"] + sites["skip_correction"]:
+        raise AssertionError(f"{name}: launches {launches} by site {sites}")
+
+
+def phase_sustained(rec, device="cuda"):
+    """bench.py's sustained stage on the port: pipelined append /
+    collect / dispatch in batches of 4,096, with the per-batch
+    host-blocking wall, phase totals from the fourth pass on, launches
+    by site, and the host reads and redos of every pass; then the final
+    state against the JAX golden digest and the one-shot pipeline."""
+    import torch
+
+    from babble_tpu_torch.ops.dag import synthetic_dag
+    from babble_tpu_torch.ops.incremental import IncrementalEngine
+    from babble_tpu_torch.ops.pipeline import run_pipeline
+
+    n, e_sus, seed = SUSTAINED
+    dag, s_rank = synthetic_dag(n, e_sus, seed=seed)
+    in_digest = dag_digest(dag, s_rank)
+    if in_digest != GOLDEN_SUSTAINED_INPUT:
+        raise AssertionError(f"sustained input digest {in_digest} != golden")
+    eng = IncrementalEngine(n, device=device, **SUSTAINED_ENGINE)
+    phase_tot, passes = {}, []
+    overlap_ns = 0
+    prof_from = 3  # the first passes pay the allocator's first allocations
+
+    def harvest(b_i):
+        nonlocal overlap_ns
+        passes.append({"host_syncs": eng.host_syncs, "redo_count": eng.redo_count,
+                       "windows": dict(eng._dbg_windows), "pull_bytes": eng.c_pull_bytes})
+        if b_i >= prof_from:
+            for ph, ns in eng.phase_ns.items():
+                phase_tot[ph] = phase_tot.get(ph, 0) + ns
+            overlap_ns += eng.last_overlap_ns
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with launches_by_site() as sites:
+        t0 = time.perf_counter()
+        per_batch = []
+        pending = None
+        b_i = 0
+        for batch in engine_batches(dag, e_sus):
+            tb = time.perf_counter()
+            eng.append_batch(*batch)
+            if pending is not None:
+                eng.collect(pending)
+                harvest(b_i)
+            pending = eng.dispatch()
+            per_batch.append(time.perf_counter() - tb)
+            b_i += 1
+        if pending is not None:
+            eng.collect(pending)
+            harvest(b_i)
+        pending = eng.dispatch()  # appends staged during the last pass
+        if pending is not None:
+            eng.collect(pending)
+            harvest(b_i + 1)
+        total = time.perf_counter() - t0
+    launches = read_launches()
+    eng.close()
+    if e_sus % ENGINE_BATCH:
+        per_batch = per_batch[:-1]
+    half = per_batch[len(per_batch) // 2:]
+    steady = statistics.median(half)
+    decided = int((eng.rr[:e_sus] >= 0).sum())
+    top = {ph: ns for ph, ns in phase_tot.items() if ph not in ("c_pull_wait", "c_pull_xfer")}
+    # frontier / rounds / fame_rr split c_dispatch, as wait / xfer split c_pull
+    share_keys = ("coords", "fd_fold", "stage", "c_dispatch", "c_stage_wait", "c_pull",
+                  "consensus", "apply")
+    denom = sum(top.get(k, 0) for k in share_keys) or 1
+    out_digest = digest(engine_state(eng, e_sus))
+    res = {
+        "n": n, "e": e_sus, "seed": seed, "batch": ENGINE_BATCH, "engine": SUSTAINED_ENGINE,
+        "total_s": total, "events_per_s": e_sus / total,
+        "steady_batch_s": steady, "steady_events_per_s": ENGINE_BATCH / steady,
+        "per_batch_s": per_batch, "decided": decided, "redo_count": eng.redo_count,
+        "passes": len(passes), "per_pass": passes,
+        "host_syncs_per_pass": [p["host_syncs"] for p in passes],
+        "phase_ms": {k: v / 1e6 for k, v in phase_tot.items()},
+        "phase_share": {k: top.get(k, 0) / denom for k in share_keys},
+        "part_share": {k: phase_tot.get(k, 0) / denom
+                       for k in ("frontier", "rounds", "fame_rr", "c_pull_wait", "c_pull_xfer")},
+        "overlap_ms": overlap_ns / 1e6, "launches": launches, "launches_by_site": sites,
+        "launches_per_pass": {k: v / len(passes) for k, v in sites.items()},
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "output_digest": out_digest}
+    rec["sustained"] = res
+    print(f"sustained: n={n} e={e_sus} batch={ENGINE_BATCH}: {total:.2f} s "
+          f"({e_sus / total:,.0f} events/s), steady {ENGINE_BATCH / steady:,.0f} events/s "
+          f"(median {steady * 1e3:.1f} ms of the second half, spread "
+          f"{min(half) * 1e3:.1f}-{max(half) * 1e3:.1f} ms), {decided} decided, "
+          f"{len(passes)} passes, redo_count {eng.redo_count}, host reads per pass "
+          f"{res['host_syncs_per_pass']}")
+    print(f"sustained launches {launches} by site {sites}; per pass "
+          + json.dumps({k: round(v, 1) for k, v in res["launches_per_pass"].items()}))
+    print("sustained phase shares: " + json.dumps(
+        {k: round(v, 4) for k, v in {**res["phase_share"], **res["part_share"]}.items()}))
+    print(f"sustained peak device memory {res['peak_mem_bytes'] / 2**30:.2f} GiB; "
+          f"state digest {'ok' if out_digest == GOLDEN_SUSTAINED_OUTPUT else 'MISMATCH'}")
+    if launches["matrix"] == 0 or launches["tally"] == 0:
+        raise AssertionError(f"sustained launches {launches}: a kernel was never launched")
+    check_engine_sites("sustained", launches, sites)
+    if decided != SUSTAINED_DECIDED:
+        raise AssertionError(f"sustained: {decided} decided != {SUSTAINED_DECIDED}")
+    if out_digest != GOLDEN_SUSTAINED_OUTPUT:
+        raise AssertionError(f"sustained: state digest {out_digest} != golden")
+    one_shot = host(run_pipeline(dag, device=device))
+    bad = engine_vs_one_shot(eng, one_shot, e_sus)
+    res["equal_to_one_shot"] = not bad
+    print(f"sustained state == one-shot run_pipeline on the card: {not bad}")
+    if bad:
+        raise AssertionError(f"sustained: engine differs from the one-shot run in {bad}")
+
+
+def sync_warnings(fn) -> int:
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn") and count
+    the synchronizing torch operations it flags, on every thread."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def phase_sustained_profile(rec, device="cuda"):
+    """The sustained engine fed batch by batch with run(): passes 3-6
+    with synchronised phase timers (each phase's share including its
+    device work); pass 7 under the sync debug mode, which must flag
+    exactly the engine's own host reads but the pulls (one flag read
+    per frontier round); pass PROFILED_BATCH, a steady pass, under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from babble_tpu_torch.ops.dag import synthetic_dag
+    from babble_tpu_torch.ops.incremental import IncrementalEngine
+
+    n, e_sus, seed = SUSTAINED
+    dag, _ = synthetic_dag(n, e_sus, seed=seed)
+    eng = IncrementalEngine(n, device=device, **SUSTAINED_ENGINE)
+    timed = range(3, PROFILED_BATCH - 1)
+    phase_tot = {}
+    flagged = expected = None
+    timers = os.environ.pop("BABBLE_ENGINE_TIMERS", None)  # untimed unless set here
+    try:
+        for b_i, batch in enumerate(engine_batches(dag, e_sus)):
+            eng.append_batch(*batch)
+            if b_i in timed:
+                os.environ["BABBLE_ENGINE_TIMERS"] = "1"
+                try:
+                    eng.run()
+                finally:
+                    os.environ.pop("BABBLE_ENGINE_TIMERS")
+                for ph, ns in eng.phase_ns.items():
+                    phase_tot[ph] = phase_tot.get(ph, 0) + ns
+            elif b_i == PROFILED_BATCH - 1:
+                redo0 = eng.redo_count
+                flagged = sync_warnings(eng.run)
+                expected = eng.host_syncs - (1 + eng.redo_count - redo0)
+            elif b_i < PROFILED_BATCH:
+                eng.run()
+            else:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    eng.run()
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+                break
+    finally:
+        eng.close()
+        if timers is not None:
+            os.environ["BABBLE_ENGINE_TIMERS"] = timers
+    parts = ("coords", "fd_fold", "frontier", "rounds", "fame_rr", "stage", "c_pull",
+             "consensus", "apply")
+    denom = sum(phase_tot.get(k, 0) for k in parts) or 1
+    p = {"batch": PROFILED_BATCH, "host_syncs": eng.host_syncs,
+         "windows": dict(eng._dbg_windows),
+         "synced_passes": [timed.start, timed.stop - 1],
+         "synced_phase_ms": {k: v / 1e6 for k, v in phase_tot.items()},
+         "synced_phase_share": {k: phase_tot.get(k, 0) / denom for k in parts},
+         "sync_debug_flagged": flagged, "frontier_reads": expected,
+         "profiled_pass_phase_ms": {k: v / 1e6 for k, v in eng.phase_ns.items()},
+         **profile_summary(prof, wall_s)}
+    rec["sustained_profile"] = p
+    print(f"sustained synced phase shares (passes {timed.start}-{timed.stop - 1}): "
+          + json.dumps({k: round(v, 4) for k, v in p["synced_phase_share"].items()}))
+    print(f"sustained pass {PROFILED_BATCH - 1} under the sync debug mode: {flagged} "
+          f"synchronizing operations flagged, {expected} frontier flag reads")
+    if flagged != expected:
+        raise AssertionError(f"sync debug mode flagged {flagged} host reads, the engine "
+                             f"counts {expected} frontier flag reads")
+    if "device_busy_s" not in p:
+        print("sustained profile: the profiler recorded no device activity: not measured")
+        return
+    print(f"sustained profile (run() of batch {PROFILED_BATCH}, {wall_s * 1e3:.1f} ms, "
+          f"{eng.host_syncs} host reads, windows {p['windows']}): "
+          f"{p['kernel_launches']} kernels, device busy {p['device_busy_s'] * 1e3:.2f} ms "
+          f"= {p['device_busy_share']:.1%} of wall; strongly_see {p['strongly_see']}; "
+          f"host waits {p['sync_calls']}")
+    for row in p["top_kernels_us"]:
+        print(f"  {row['us'] / 1e3:9.3f} ms  x{row['count']:6d}  {row['name']}")
+
+
+def phase_northstar_incremental(rec, device="cuda"):
+    """bench.py's north-star incremental stage on the port: run() per
+    batch of 4,096 over synthetic_dag(1024, 100_000, seed=2)."""
+    import torch
+
+    from babble_tpu_torch.ops.dag import synthetic_dag
+    from babble_tpu_torch.ops.incremental import IncrementalEngine
+    from babble_tpu_torch.ops.pipeline import run_pipeline
+
+    n, e, seed = NORTHSTAR
+    dag, _ = synthetic_dag(n, e, seed=seed)
+    one_shot = rec.get("_northstar_out") or host(run_pipeline(dag, device=device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = IncrementalEngine(n, device=device, **NORTHSTAR_ENGINE)
+    per_b, syncs = [], []
+    phase_tot = {}
+    reset_launches()
+    with launches_by_site() as sites:
+        t0 = time.perf_counter()
+        for batch in engine_batches(dag, e):
+            eng.append_batch(*batch)
+            tb = time.perf_counter()
+            eng.run()
+            per_b.append(time.perf_counter() - tb)
+            syncs.append(eng.host_syncs)
+            for ph, ns in eng.phase_ns.items():
+                phase_tot[ph] = phase_tot.get(ph, 0) + ns
+        total = time.perf_counter() - t0
+    launches = read_launches()
+    eng.close()
+    half = per_b[len(per_b) // 2:]
+    steady = statistics.median(half)
+    decided = int((eng.rr[:e] >= 0).sum())
+    res = {
+        "n": n, "e": e, "seed": seed, "batch": ENGINE_BATCH, "engine": NORTHSTAR_ENGINE,
+        "total_s": total, "events_per_s": e / total, "steady_batch_s": steady,
+        "steady_events_per_s": ENGINE_BATCH / steady, "per_batch_s": per_b,
+        "decided": decided, "redo_count": eng.redo_count, "host_syncs_per_pass": syncs,
+        "phase_ms": {k: v / 1e6 for k, v in phase_tot.items()},
+        "launches": launches, "launches_by_site": sites,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "memory_stats": eng.device_memory_stats()}
+    rec["northstar_incremental"] = res
+    print(f"northstar incremental: n={n} e={e} batch={ENGINE_BATCH}: {total:.2f} s "
+          f"({e / total:,.0f} events/s), steady {ENGINE_BATCH / steady:,.0f} events/s, "
+          f"{decided} decided, redo_count {eng.redo_count}, host reads per pass {syncs}, "
+          f"peak {res['peak_mem_bytes'] / 2**30:.2f} GiB, launches {launches} by site {sites}")
+    print("northstar incremental phases (ms): " + json.dumps(
+        {k: round(v, 1) for k, v in res["phase_ms"].items()}))
+    check_engine_sites("northstar_incremental", launches, sites)
+    if decided != NORTHSTAR_DECIDED:
+        raise AssertionError(f"northstar incremental: {decided} != {NORTHSTAR_DECIDED}")
+    bad = engine_vs_one_shot(eng, one_shot, e)
+    res["equal_to_one_shot"] = not bad
+    print(f"northstar incremental state == one-shot run_pipeline on the card: {not bad}")
+    if bad:
+        raise AssertionError(f"northstar incremental differs from the one-shot run in {bad}")
+
+
 def kernels_line(rec) -> dict:
     """One entry per entry point of the strongly-see kernel, timed at
     the shape the main path launches most (64^3; for the gathered entry
-    the frontier probe's TALLY); `by_shape` holds every shape."""
+    the frontier probe's TALLY); `by_shape` holds every shape.
+    `launches` are those of the incremental engine's sustained run (the
+    live node's path); `launches_by_path` gives every path's."""
     main_path = rec.get("main_path_launches", {})
-    by_mode = main_path.get("by_mode", {})
+    engine_path = rec.get("sustained") or {}
+    by_mode = engine_path.get("launches", {})
+    by_path = {"one_shot_headline": {"by_mode": main_path.get("by_mode"),
+                                     "by_site": main_path.get("by_site")}}
+    for name in ("sustained", "northstar_incremental"):
+        r = rec.get(name) or {}
+        by_path[name] = {"by_mode": r.get("launches"), "by_site": r.get("launches_by_site")}
     counts = {tuple(r["shape"]): r for r in rec.get("kernel_shapes", [])}
     gathered = rec.get("gathered_shapes", [])
     entries = []
@@ -622,8 +1007,10 @@ def kernels_line(rec) -> dict:
                    and r["mode"] == "tally"), {}),
              by_mode.get("matrix", 0) + by_mode.get("tally", 0),
              {"shape": "frontier_probe tally [64, 64, 64, 1]",
+              "launches_on": "sustained (the incremental engine)",
               "launches_by_mode": {k: by_mode.get(k, 0) for k in ("matrix", "tally")},
-              "launches_by_site": main_path.get("by_site", {}),
+              "launches_by_site": engine_path.get("launches_by_site", {}),
+              "launches_by_path": by_path,
               "northstar_launches_by_site":
                   (rec.get("northstar") or {}).get("launches_by_site", {})})):
         err = max((r["max_abs_err"] for r in rows), default=None)
@@ -669,7 +1056,9 @@ def main() -> int:
     phases = [("build", phase_build), ("kernel", phase_kernel),
               ("small", phase_small), ("headline", phase_headline),
               ("main_path", phase_main_path_counts), ("profile", phase_profile),
-              ("northstar", phase_northstar)]
+              ("northstar", phase_northstar), ("sustained", phase_sustained),
+              ("sustained_profile", phase_sustained_profile),
+              ("northstar_incremental", phase_northstar_incremental)]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -690,7 +1079,9 @@ def main() -> int:
     print(json.dumps(kernels_line(rec)))
     print(json.dumps({"results": {k: rec.get(k) for k in
                                   ("host", "build", "headline", "main_path_launches",
-                                   "profile", "northstar", "phase_s", "total_s")}},
+                                   "profile", "northstar", "sustained",
+                                   "sustained_profile", "northstar_incremental",
+                                   "phase_s", "total_s")}},
                      default=str))
     print(smi_line)
     if rec["failed"]:
