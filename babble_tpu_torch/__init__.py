@@ -3,13 +3,18 @@
 The counterpart of the JAX package `babble_tpu`, ported slice by slice
 for one NVIDIA H100. It holds the one-shot consensus pipeline (DAG
 tensors -> coordinates -> first descendants -> rounds/witnesses ->
-fame -> round received and median timestamps -> the total order), the
-live node's incremental engine (ops/incremental.py), and the
-hand-written CUDA kernel for the strongly-see compare-count.
+fame -> round received and median timestamps -> the total order, with
+`ops.run_consensus_batch` over signed events), the live node's
+incremental engine (ops/incremental.py), the hand-written CUDA kernel
+for the strongly-see compare-count, and the host surface a node drives:
+Go-compatible JSON (gojson), ECDSA P-256 (crypto), the hashgraph models
+and in-memory store, the host `Hashgraph` and `TorchHashgraph`, which
+runs consensus on the incremental engine (hashgraph/).
 
-The package imports torch and numpy only. Entry points run on the
-CUDA device unless the caller passes device="cpu"; on the CPU every
-kernel wrapper takes its plain PyTorch version.
+The package imports torch, numpy and the standard library only (and
+`cryptography` when it is installed). Entry points run on the CUDA
+device unless the caller passes device="cpu"; on the CPU every kernel
+wrapper takes its plain PyTorch version.
 """
 
 from .devices import resolve_device

@@ -1,18 +1,21 @@
 """The consensus pipeline on PyTorch (counterpart of babble_tpu/ops):
 DAG tensors, the per-stage kernels, block closure, round frontier, the
-one-shot pipeline entry point and its host finish, and the live node's
-incremental engine."""
+one-shot pipeline entry point and its host finish (`run_consensus_batch`
+over signed events), and the live node's incremental engine."""
 
-from .dag import DagTensors, dag_from_arrays, synthetic_dag
-from .engine import consensus_order
+from .dag import DagTensors, build_dag, dag_from_arrays, synthetic_dag
+from .engine import BatchConsensusResult, consensus_order, run_consensus_batch
 from .incremental import IncrementalEngine, PendingPass, RunDelta
 from .pipeline import run_pipeline
 
 __all__ = [
     "DagTensors",
+    "build_dag",
     "dag_from_arrays",
     "synthetic_dag",
+    "BatchConsensusResult",
     "consensus_order",
+    "run_consensus_batch",
     "IncrementalEngine",
     "PendingPass",
     "RunDelta",

@@ -5,19 +5,21 @@ creators participant ids, timestamps dense int32 ranks (rank -1 is
 reserved for Go's zero time, reference hashgraph.go:860-868). The
 pipeline copies the arrays to its device when it runs.
 
-This system has no weights: the DAG is the state. `dag_from_arrays`
-carries a DAG across from the reference package by its numpy fields;
+This system has no weights: the DAG is the state. `build_dag` makes
+it from signed `Event`s in insertion order; `dag_from_arrays` carries a
+DAG across from the reference package by its numpy fields;
 `synthetic_dag` makes the benchmark's random-gossip DAGs from a seed
-(bit-identical to the reference's for the same seed). Building a DAG
-from signed `Event`s waits for the port of the hashgraph models.
+(bit-identical to the reference's for the same seed).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from ..hashgraph.graph import middle_bit
 
 
 @dataclass
@@ -43,6 +45,8 @@ class DagTensors:
     chain_rank: np.ndarray  # [n, K] int32 timestamp rank along each chain
     root_round: np.ndarray  # [n] int32 per-participant Root round (-1 base)
     hexes: List[str] = field(default_factory=list)  # id -> event hex
+    hex_to_id: Dict[str, int] = field(default_factory=dict)
+    events: list = field(default_factory=list)  # id -> Event
 
     @property
     def super_majority(self) -> int:
@@ -71,6 +75,8 @@ def _assemble(
     ts_values: np.ndarray,
     root_round: np.ndarray,
     hexes: List[str],
+    hex_to_id: Optional[Dict[str, int]] = None,
+    events: Optional[list] = None,
     max_level_width: Optional[int] = None,
 ) -> DagTensors:
     """Shared tail of DAG assembly: wavefront levels + creator chains.
@@ -142,6 +148,69 @@ def _assemble(
         chain_rank=chain_rank,
         root_round=root_round,
         hexes=hexes,
+        hex_to_id=hex_to_id if hex_to_id is not None else {},
+        events=events if events is not None else [],
+    )
+
+
+def build_dag(
+    events: Sequence,
+    participants: Dict[str, int],
+    roots: Optional[Dict] = None,
+    max_level_width: Optional[int] = None,
+) -> DagTensors:
+    """The DAG of signed `Event`s (hashgraph/event.py), which must be in
+    insertion (topological) order — the order the incremental engine
+    would receive them. Parents are resolved by hex and must be in the
+    batch; coins are the middle bit of each hash; `roots` (participant
+    key -> Root) set each creator's root round."""
+    n = len(participants)
+    e = len(events)
+
+    hex_to_id: Dict[str, int] = {}
+    hexes: List[str] = []
+    for i, ev in enumerate(events):
+        h = ev.hex()
+        hex_to_id[h] = i
+        hexes.append(h)
+
+    self_parent = np.full(e + 1, -1, dtype=np.int32)
+    other_parent = np.full(e + 1, -1, dtype=np.int32)
+    creator = np.zeros(e + 1, dtype=np.int32)
+    index = np.zeros(e + 1, dtype=np.int32)
+    coin = np.zeros(e + 1, dtype=np.int8)
+    ts_ns = np.zeros(e, dtype=np.int64)
+
+    for i, ev in enumerate(events):
+        sp, op = ev.self_parent(), ev.other_parent()
+        if sp:
+            if sp not in hex_to_id:
+                raise ValueError(f"event {i} self-parent not in batch: {sp[:16]}")
+            self_parent[i] = hex_to_id[sp]
+        if op:
+            if op not in hex_to_id:
+                raise ValueError(f"event {i} other-parent not in batch: {op[:16]}")
+            other_parent[i] = hex_to_id[op]
+        creator[i] = participants[ev.creator()]
+        index[i] = ev.index()
+        coin[i] = 1 if middle_bit(hexes[i]) else 0
+        ts_ns[i] = ev.body.timestamp.ns
+
+    # Dense timestamp ranks: median selection and the final sort only
+    # need ordering, so int32 ranks replace int64 nanoseconds on device.
+    ts_values, ts_rank_e = np.unique(ts_ns, return_inverse=True)
+    ts_rank = np.zeros(e + 1, dtype=np.int32)
+    ts_rank[:e] = ts_rank_e.astype(np.int32)
+
+    root_round = np.full(n, -1, dtype=np.int32)
+    if roots:
+        for pk, root in roots.items():
+            root_round[participants[pk]] = root.round
+
+    return _assemble(
+        n, e, self_parent, other_parent, creator, index, coin, ts_rank,
+        ts_values, root_round, hexes, hex_to_id, list(events),
+        max_level_width=max_level_width,
     )
 
 

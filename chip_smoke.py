@@ -56,10 +56,22 @@ line is not printed):
 11. northstar_incremental — the engine at n = 1024 (capacity 131,072,
               block 512, k_capacity 512), run() per batch of 4,096 over
               the north-star DAG: time, peak memory, launches by site,
-              44,770 decided and the state equal to the one-shot run.
+              44,770 decided and the state equal to the one-shot run;
+12. hashgraph — signed events through the port's host surface:
+              signed_gossip (n = 64, 32,768 events, deterministic
+              RFC 6979 signatures, port modules only) fed to a
+              TorchHashgraph (the sustained engine settings) by
+              insert_wire_batch in batches of 4,096 with the node's
+              pipelined collect / dispatch, blocks taken by the commit
+              callback: the input and output digests against the JAX
+              reference package's TpuHashgraph (GOLDEN_HASHGRAPH_*), the
+              same order as the port's one-shot run_consensus_batch on
+              the card, launches by site, insert / Store-mirror / pass
+              seconds, and a frame reset replayed on a fresh graph equal
+              to the host Hashgraph's replay.
 
 Each path that launches the kernel (the one-shot main path, sustained,
-northstar_incremental) runs with every launch count set to 0 just
+northstar_incremental, hashgraph) runs with every launch count set to 0 just
 before it and read just after, and fails when the kernel was not
 launched. Lines before the last: a {"kernels": [...]} line (launches on
 the engine's path and on each path, max error, times and bound), a
@@ -109,6 +121,24 @@ SUSTAINED = (64, 50_000, 3)
 SUSTAINED_DECIDED = 47_935
 SUSTAINED_ENGINE = dict(capacity=65536, block=512, k_capacity=1024)
 NORTHSTAR_ENGINE = dict(capacity=131072, block=512, k_capacity=512)
+# The hashgraph phase: signed events (signed_gossip: n = 64, 32,768
+# events, topology seed 3, keys from seeds 3000 + i, one transaction per
+# event, a 1 ms clock from 1.7e18 ns, RFC 6979 signatures) through
+# TorchHashgraph. The goldens are the JAX reference package's
+# TpuHashgraph on the CPU, fed the same events (carried across by their
+# Go-JSON bytes) in the same batches with the same pipelined loop
+# (drive_graph); the JAX package's one-shot run_consensus_batch gives the
+# same order. INPUT is hashgraph_input_digest of the events, OUTPUT
+# hashgraph_output_digest of the consensus order, the committed blocks
+# and last_consensus_round.
+HASHGRAPH = (64, 32_768, 3)
+HASHGRAPH_KEY_SEED = 3000
+HASHGRAPH_CLOCK_NS = 1_700_000_000_000_000_000
+HASHGRAPH_ENGINE = SUSTAINED_ENGINE
+HASHGRAPH_CACHE = 100_000
+GOLDEN_HASHGRAPH_INPUT = "631cacf9048e1b3a795046327e6c71317d5eed43a5d4282b5696aefcc39d95fb"
+GOLDEN_HASHGRAPH_OUTPUT = "e7c7462f18d4a493a7c1360dba12f1646806c78fd8e2f3a7afe6d64d1138c569"
+HASHGRAPH_DECIDED = 30_996
 ENGINE_BATCH = 4096
 PROFILED_BATCH = 8  # the steady pass sustained_profile traces
 KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
@@ -825,6 +855,240 @@ def phase_sustained(rec, device="cuda"):
         raise AssertionError(f"sustained: engine differs from the one-shot run in {bad}")
 
 
+def signed_gossip(n, e, seed, key_seed=HASHGRAPH_KEY_SEED):
+    """Random-gossip stream of signed events (the shape the node
+    runtime produces), built with the port's modules only: the first n
+    events one per creator, then a random creator syncs from a random
+    other peer. Signatures are RFC 6979 (deterministic), so the stream
+    is the same on every machine: through libcrypto when it loads
+    (_openssl), else in pure Python (_fallback); both give the same bits.
+    Returns (events, participants, signer name)."""
+    from babble_tpu_torch.crypto import _fallback, _openssl
+    from babble_tpu_torch.gojson import BigInt, Timestamp
+    from babble_tpu_torch.hashgraph import Event
+
+    keys = [_fallback.key_from_seed(key_seed + i) for i in range(n)]
+    pubs = [_fallback.pub_key_bytes(k) for k in keys]
+    participants = {"0x" + p.hex().upper(): i for i, p in enumerate(pubs)}
+    if _openssl.available():
+        signer = "_openssl.sign (libcrypto, RFC 6979)"
+
+        def sign(key, digest):
+            return _openssl.sign(key.d, digest)
+    else:
+        signer, sign = "_fallback.sign (pure Python, RFC 6979)", _fallback.sign
+    rng = np.random.default_rng(seed)
+    creators = np.concatenate([np.arange(n), rng.integers(0, n, size=e - n)])
+    others = rng.integers(1, n, size=e)
+    heads, seqs, events = [""] * n, [-1] * n, []
+    clock = HASHGRAPH_CLOCK_NS
+    for i in range(e):
+        c = int(creators[i])
+        op = heads[(c + int(others[i])) % n] if i >= n else ""
+        clock += 1_000_000
+        seqs[c] += 1
+        ev = Event.new([b"tx%d" % i], [heads[c], op], pubs[c], seqs[c],
+                       timestamp=Timestamp(clock))
+        r, s = sign(keys[c], ev.body.hash())
+        # As Event.sign sets them: R/S, the memos they invalidate, and
+        # the verdict of an event signed with its creator's own key.
+        ev.r, ev.s = BigInt(r), BigInt(s)
+        ev.invalidate(body=False)
+        ev._sig_ok = True
+        heads[c] = ev.hex()
+        events.append(ev)
+    return events, participants, signer
+
+
+def hashgraph_input_digest(events) -> str:
+    return hashlib.sha256("\n".join(ev.hex() for ev in events).encode()).hexdigest()
+
+
+def hashgraph_output_digest(order, blocks, last_consensus_round) -> str:
+    """sha256 over the consensus order's hexes, then each committed
+    block's Go-JSON bytes, then last_consensus_round."""
+    h = hashlib.sha256()
+    for x in order:
+        h.update(x.encode() + b"\n")
+    for b in blocks:
+        h.update(b.marshal())
+    h.update(str(last_consensus_round).encode())
+    return h.hexdigest()
+
+
+def drive_graph(hg, events, batch=ENGINE_BATCH, on_pass=None):
+    """The node's pipelined consensus loop over a device graph: insert
+    batch k+1 through insert_wire_batch while pass k is in flight, then
+    collect it and dispatch the next; at the end drain until dispatch
+    returns None. Returns the seconds of each insert_wire_batch and the
+    wall of each loop step (insert + collect + dispatch). `on_pass` is
+    called after each collect."""
+    insert_s, step_s = [], []
+    pending = None
+
+    def collect(pp):
+        hg.collect_consensus(pp)
+        if on_pass is not None:
+            on_pass()
+
+    for lo in range(0, len(events), batch):
+        t0 = time.perf_counter()
+        hg.insert_wire_batch(events[lo:lo + batch])
+        insert_s.append(time.perf_counter() - t0)
+        if pending is not None:
+            collect(pending)
+        pending = hg.dispatch_consensus()
+        step_s.append(time.perf_counter() - t0)
+    if pending is not None:
+        collect(pending)
+    while (pending := hg.dispatch_consensus()) is not None:
+        collect(pending)
+    return insert_s, step_s
+
+
+def phase_hashgraph(rec, device="cuda"):
+    """Signed events through the port's TorchHashgraph on the card,
+    driven as the node drives it (drive_graph): input and output digests
+    against the JAX reference package's (GOLDEN_HASHGRAPH_*), the same
+    order as the port's one-shot run_consensus_batch on the card, B1
+    launches by site, and a frame reset replayed on a fresh graph."""
+    import torch
+
+    from babble_tpu_torch.crypto import BACKEND
+    from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore, TorchHashgraph
+    from babble_tpu_torch.ops.engine import run_consensus_batch
+
+    n, e, seed = HASHGRAPH
+    t0 = time.perf_counter()
+    events, participants, signer = signed_gossip(n, e, seed)
+    build_s = time.perf_counter() - t0
+    in_digest = hashgraph_input_digest(events)
+    # ECDSA verify on this host, for a sample of fresh copies (the
+    # events above carry their signer's verdict, as Event.sign leaves it).
+    sample = [Event(ev.body, r=ev.r, s=ev.s) for ev in events[:2048]]
+    t0 = time.perf_counter()
+    if not all(ev.verify() for ev in sample):
+        raise AssertionError("hashgraph: a signature does not verify")
+    verify_ms = (time.perf_counter() - t0) / len(sample) * 1e3
+    print(f"hashgraph: crypto backend {BACKEND}, signer {signer}; built and signed "
+          f"{e} events in {build_s:.2f} s; verify {verify_ms:.3f} ms per event; "
+          f"input digest {'ok' if in_digest == GOLDEN_HASHGRAPH_INPUT else 'MISMATCH'}")
+    if in_digest != GOLDEN_HASHGRAPH_INPUT:
+        raise AssertionError(f"hashgraph input digest {in_digest} != golden")
+
+    blocks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_at_start = torch.cuda.memory_allocated()
+    hg = TorchHashgraph(participants, InmemStore(participants, HASHGRAPH_CACHE),
+                        blocks.append, device=device, **HASHGRAPH_ENGINE)
+    apply_s, syncs, phase_tot = [], [], {}
+    real_apply = hg._apply_delta_atomically
+
+    def timed_apply(delta):
+        t = time.perf_counter()
+        real_apply(delta)
+        apply_s.append(time.perf_counter() - t)
+
+    hg._apply_delta_atomically = timed_apply
+    def on_pass():
+        syncs.append(hg.engine.host_syncs)
+        for ph, ns in hg.engine.phase_ns.items():
+            phase_tot[ph] = phase_tot.get(ph, 0) + ns
+
+    reset_launches()
+    with launches_by_site() as sites:
+        t0 = time.perf_counter()
+        insert_s, step_s = drive_graph(hg, events, on_pass=on_pass)
+        total = time.perf_counter() - t0
+    launches = read_launches()
+    hg.close()
+    order = hg.consensus_events()
+    decided = len(order)
+    out_digest = hashgraph_output_digest(order, blocks, hg.last_consensus_round)
+    res = {
+        "n": n, "e": e, "seed": seed, "batch": ENGINE_BATCH, "engine": HASHGRAPH_ENGINE,
+        "crypto_backend": BACKEND, "signer": signer, "build_sign_s": build_s,
+        "verify_ms_per_event": verify_ms, "total_s": total,
+        "consensus_events_per_s": decided / total, "events_per_s": e / total,
+        "insert_s": insert_s, "step_s": step_s, "apply_s": apply_s,
+        "insert_total_s": sum(insert_s), "apply_total_s": sum(apply_s),
+        "passes": len(apply_s), "host_syncs_per_pass": syncs,
+        "engine_phase_ms": {k: v / 1e6 for k, v in phase_tot.items()},
+        "redo_count": hg.engine.redo_count, "decided": decided, "blocks": len(blocks),
+        "last_consensus_round": hg.last_consensus_round,
+        "launches": launches, "launches_by_site": sites,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "mem_at_start_bytes": mem_at_start,
+        "input_digest": in_digest, "output_digest": out_digest}
+    rec["hashgraph"] = res
+    print(f"hashgraph: n={n} e={e} batch={ENGINE_BATCH}: {total:.2f} s from the first "
+          f"insert to the drained last pass ({decided / total:,.0f} consensus events/s), "
+          f"{decided} decided, {len(blocks)} blocks, last consensus round "
+          f"{hg.last_consensus_round}, {len(apply_s)} passes, redo_count "
+          f"{hg.engine.redo_count}, host reads per pass {syncs}")
+    print("hashgraph insert_wire_batch s per batch: "
+          + json.dumps([round(x, 4) for x in insert_s]))
+    print("hashgraph loop step s (insert + collect + dispatch): "
+          + json.dumps([round(x, 4) for x in step_s]))
+    print("hashgraph store mirror + blocks s per pass: "
+          + json.dumps([round(x, 4) for x in apply_s]))
+    print("hashgraph engine phases (ms, unsynchronised): " + json.dumps(
+        {k: round(v, 1) for k, v in res["engine_phase_ms"].items()}))
+    print(f"hashgraph launches {launches} by site {sites}; peak device memory "
+          f"{res['peak_mem_bytes'] / 2**30:.2f} GiB ({mem_at_start / 2**30:.2f} GiB "
+          f"held before the graph was made); output digest "
+          f"{'ok' if out_digest == GOLDEN_HASHGRAPH_OUTPUT else 'MISMATCH'}")
+    check_engine_sites("hashgraph", launches, sites)
+    if decided != HASHGRAPH_DECIDED:
+        raise AssertionError(f"hashgraph: {decided} decided != {HASHGRAPH_DECIDED}")
+    if out_digest != GOLDEN_HASHGRAPH_OUTPUT:
+        raise AssertionError(f"hashgraph output digest {out_digest} != golden")
+
+    t0 = time.perf_counter()
+    batch = run_consensus_batch(events, participants, device=device)
+    res["one_shot_s"] = time.perf_counter() - t0
+    res["equal_to_one_shot"] = batch.consensus_order == order
+    print(f"hashgraph: one-shot run_consensus_batch on the card {res['one_shot_s']:.2f} s, "
+          f"{len(batch.consensus_order)} decided, same order: {res['equal_to_one_shot']}")
+    if not res["equal_to_one_shot"]:
+        raise AssertionError("hashgraph: the one-shot order differs from TorchHashgraph's")
+
+    # Frame reset: a fresh graph reset to the frame's roots and fed its
+    # events decides as the port's host Hashgraph (the reference
+    # semantics, held against the JAX package by the CPU tests) does
+    # after the same reset. The replay re-decides the last consensus
+    # round's successors, which may reach past what the original run
+    # decided: the reference does the same.
+    t0 = time.perf_counter()
+    frame = hg.get_frame()
+    replay = {}
+    for kind in ("device", "host"):
+        g = (TorchHashgraph(participants, InmemStore(participants, HASHGRAPH_CACHE),
+                            device=device, **HASHGRAPH_ENGINE) if kind == "device"
+             else Hashgraph(participants, InmemStore(participants, HASHGRAPH_CACHE)))
+        g.reset(frame.roots)
+        for ev in frame.events:
+            g.insert_event(Event(ev.body, r=ev.r, s=ev.s), False)
+        g.run_consensus()
+        if kind == "device":
+            g.close()
+        replay[kind] = (g.consensus_events(), g.last_consensus_round,
+                        [(g.round(ev.hex()), g.round_received(ev.hex())) for ev in frame.events])
+    decided_before = set(order)
+    res["frame"] = {"events": len(frame.events), "decided": len(replay["device"][0]),
+                    "already_decided": sum(x in decided_before for x in replay["device"][0]),
+                    "last_consensus_round": replay["device"][1],
+                    "seconds": time.perf_counter() - t0,
+                    "equal_to_host": replay["device"] == replay["host"]}
+    print(f"hashgraph frame reset: {len(frame.events)} frame events replayed, "
+          f"{res['frame']['decided']} decided ({res['frame']['already_decided']} of them "
+          f"decided by the original run), last consensus round {replay['device'][1]}; "
+          f"equal to the host Hashgraph's replay: {res['frame']['equal_to_host']}")
+    if not res["frame"]["equal_to_host"]:
+        raise AssertionError("hashgraph: the frame replay differs from the host graph's")
+
+
 def sync_warnings(fn) -> int:
     """Run fn() under torch.cuda.set_sync_debug_mode("warn") and count
     the synchronizing torch operations it flags, on every thread."""
@@ -993,7 +1257,7 @@ def kernels_line(rec) -> dict:
     by_mode = engine_path.get("launches", {})
     by_path = {"one_shot_headline": {"by_mode": main_path.get("by_mode"),
                                      "by_site": main_path.get("by_site")}}
-    for name in ("sustained", "northstar_incremental"):
+    for name in ("sustained", "northstar_incremental", "hashgraph"):
         r = rec.get(name) or {}
         by_path[name] = {"by_mode": r.get("launches"), "by_site": r.get("launches_by_site")}
     counts = {tuple(r["shape"]): r for r in rec.get("kernel_shapes", [])}
@@ -1058,7 +1322,8 @@ def main() -> int:
               ("main_path", phase_main_path_counts), ("profile", phase_profile),
               ("northstar", phase_northstar), ("sustained", phase_sustained),
               ("sustained_profile", phase_sustained_profile),
-              ("northstar_incremental", phase_northstar_incremental)]
+              ("northstar_incremental", phase_northstar_incremental),
+              ("hashgraph", phase_hashgraph)]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1081,7 +1346,7 @@ def main() -> int:
                                   ("host", "build", "headline", "main_path_launches",
                                    "profile", "northstar", "sustained",
                                    "sustained_profile", "northstar_incremental",
-                                   "phase_s", "total_s")}},
+                                   "hashgraph", "phase_s", "total_s")}},
                      default=str))
     print(smi_line)
     if rec["failed"]:
