@@ -9,7 +9,11 @@ incremental engine (ops/incremental.py), the hand-written CUDA kernel
 for the strongly-see compare-count, and the host surface a node drives:
 Go-compatible JSON (gojson), ECDSA P-256 (crypto), the hashgraph models
 and in-memory store, the host `Hashgraph` and `TorchHashgraph`, which
-runs consensus on the incremental engine (hashgraph/).
+runs consensus on the incremental engine (hashgraph/), and the node on
+top: `Core` and `Node` (node/) with the in-memory transport (net/), the
+in-process app proxy (proxy/), the admission plane (service/) and the
+telemetry they record into (telemetry/), where `Core(engine="torch")`
+runs consensus on `TorchHashgraph`.
 
 The package imports torch, numpy and the standard library only (and
 `cryptography` when it is installed). Entry points run on the CUDA

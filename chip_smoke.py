@@ -68,12 +68,28 @@ line is not printed):
               same order as the port's one-shot run_consensus_batch on
               the card, launches by site, insert / Store-mirror / pass
               seconds, and a frame reset replayed on a fresh graph equal
-              to the host Hashgraph's replay.
+              to the host Hashgraph's replay;
+13. node    — the node seam: (a) tests/test_failover.py's Core script
+              (600 scripted syncs, seed 13, consensus every 5) with one
+              Core(engine="torch") on the card among three host Cores,
+              held against a host-engine twin Core fed the same events at
+              the same cadence (consensus events, block bytes, head/seq,
+              rounds, round-received); (b) bench.py's node stage on the
+              port: a live 4-node net of Nodes on InmemTransport and
+              InmemAppProxy, every node on the torch engine on the card,
+              a transaction every 2 ms, warm-up, one 15 s window with a
+              3 s torch.profiler slice: committed consensus events/s,
+              commit latency, pass walls, engine phases, device bytes,
+              the card's busy share; gates on prefix agreement, block
+              bytes across nodes and against one node's events replayed
+              into a host Hashgraph, every committed block delivered or
+              still queued at shutdown, no fast-forward, no failover and
+              no failed pass.
 
 Each path that launches the kernel (the one-shot main path, sustained,
-northstar_incremental, hashgraph) runs with every launch count set to 0 just
-before it and read just after, and fails when the kernel was not
-launched. Lines before the last: a {"kernels": [...]} line (launches on
+northstar_incremental, hashgraph, both parts of node) runs with every
+launch count set to 0 just before it and read just after, and fails when
+the kernel was not launched at each of its sites. Lines before the last: a {"kernels": [...]} line (launches on
 the engine's path and on each path, max error, times and bound), a
 {"results": ...} line, and the nvidia-smi line. The last line is
 {"ok": true, "device": {...}}.
@@ -85,13 +101,17 @@ when run outside the repository (the port is not importable there).
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
+import logging
 import os
 import platform
+import queue
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -139,6 +159,20 @@ HASHGRAPH_CACHE = 100_000
 GOLDEN_HASHGRAPH_INPUT = "631cacf9048e1b3a795046327e6c71317d5eed43a5d4282b5696aefcc39d95fb"
 GOLDEN_HASHGRAPH_OUTPUT = "e7c7462f18d4a493a7c1360dba12f1646806c78fd8e2f3a7afe6d64d1138c569"
 HASHGRAPH_DECIDED = 30_996
+# The node phase: tests/test_failover.py's Core script (syncs, seed,
+# consensus every k syncs), then bench.py's node stage for the device
+# engine (bench.py build_host_testnet / node_testnet_events_per_sec).
+NODE_N = 4
+NODE_KEY_SEED = 9000
+NODE_SCRIPT = (600, 13, 5)
+NODE_CACHE = 100_000
+NODE_HEARTBEAT = 0.01
+NODE_INTERVAL = 0.25
+NODE_TX_EVERY_S = 0.002
+NODE_WARM_EVENTS = 1500
+NODE_WARM_S = 30.0
+NODE_WINDOW_S = 15.0
+NODE_PROFILE_S = 3.0
 ENGINE_BATCH = 4096
 PROFILED_BATCH = 8  # the steady pass sustained_profile traces
 KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
@@ -153,8 +187,12 @@ KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
 # - engine_fame_window / northstar_engine_fame: the incremental engine's
 #   fame launch over a 16-round window (15 voting rounds) at n = 64 and
 #   n = 1024, against the window's compact witness-row table;
-# - northstar_engine_probe: the engine's frontier probe at n = 1024.
+# - northstar_engine_probe: the engine's frontier probe at n = 1024;
+# - node_fame_window / node_frontier_probe: the live node's engine at
+#   n = 4 (phase node), the main path's shapes.
 GATHERED_SHAPES = [
+    ("node_fame_window", 15 * 4, 4, 4, 15, "tiles"),
+    ("node_frontier_probe", 4, 4, 4, 1, "one"),
     ("fame_batch", 127 * 64, 64, 64, 127, "tiles"),
     ("frontier_probe", 64, 64, 64, 1, "one"),
     ("northstar_level", 1024, 1024, 1024, 7, "two"),
@@ -254,18 +292,22 @@ def read_launches() -> dict:
 def launches_by_site():
     """Attribute each launch of the gathered wrapper to the pipeline
     function that asked for it (SITES), through a spy around the
-    wrapper; the wrapper's own counts go on as before."""
+    wrapper; the wrapper's own counts go on as before. The spy holds a
+    lock around each call, so engines on several threads (the node
+    phase's four) neither lose a count nor take another's."""
     from babble_tpu_torch.ops import hopper_kernels as hk
 
     real = hk.strongly_see_gathered
     sites = {}
+    lock = threading.Lock()
 
     def spy(*args):
-        before = sum(real.launches.values())
-        out = real(*args)
         caller = sys._getframe(1).f_code.co_name
         site = SITES.get(caller, caller)
-        sites[site] = sites.get(site, 0) + sum(real.launches.values()) - before
+        with lock:
+            before = sum(real.launches.values())
+            out = real(*args)
+            sites[site] = sites.get(site, 0) + sum(real.launches.values()) - before
         return out
 
     spy.launches = real.launches
@@ -1089,6 +1131,460 @@ def phase_hashgraph(rec, device="cuda"):
         raise AssertionError("hashgraph: the frame replay differs from the host graph's")
 
 
+def node_keys(n):
+    """The node phase's keys (seeds NODE_KEY_SEED + i) and public keys,
+    in canonical (sorted public key) order."""
+    from babble_tpu_torch import crypto
+
+    keyed = sorted(((k, "0x" + crypto.pub_key_bytes(k).hex().upper())
+                    for k in (crypto.key_from_seed(NODE_KEY_SEED + i) for i in range(n))),
+                   key=lambda kp: kp[1])
+    return [k for k, _ in keyed], [p for _, p in keyed]
+
+
+def stored_events(store, participants):
+    """Every event of a store, in its graph's insertion order."""
+    evs = [store.get_event(h) for pk in participants for h in store.participant_events(pk, -1)]
+    return sorted(evs, key=lambda e: e.topological_index)
+
+
+def committed_blocks(hg, last=None) -> dict:
+    """{round received: block bytes} of the blocks a graph committed, up
+    to `last` (default: its last consensus round)."""
+    from babble_tpu_torch.common import StoreError
+
+    last = hg.last_consensus_round if last is None else last
+    out = {}
+    for rr in range((last if last is not None else -1) + 1):
+        try:
+            out[rr] = hg.store.get_block(rr).marshal()
+        except StoreError:
+            continue
+    return out
+
+
+def prefix_equal(a, b) -> bool:
+    m = min(len(a), len(b))
+    return a[:m] == b[:m]
+
+
+def node_core_script(device):
+    """tests/test_failover.py's make_cores + gossip_script on the port:
+    one Core(engine="torch") on the card with the default presize among
+    three host Cores, NODE_SCRIPT's scripted syncs. Its events are then
+    fed to a host-engine twin Core (same key, same events, a pass where
+    the torch core ran one), which must agree in consensus events, block
+    bytes, head/seq, rounds and round-received."""
+    import random
+
+    from babble_tpu_torch.hashgraph import Event, InmemStore
+    from babble_tpu_torch.node import Core
+
+    steps, seed, every = NODE_SCRIPT
+    keys, pubs = node_keys(NODE_N)
+    participants = {pk: i for i, pk in enumerate(pubs)}
+    commits = []
+    cores = [Core(i, keys[i], participants, InmemStore(participants, NODE_CACHE),
+                  commit_callback=commits.append if i == 0 else None,
+                  engine="torch" if i == 0 else "host",
+                  engine_opts={"device": device} if i == 0 else None)
+             for i in range(NODE_N)]
+    dev = cores[0]
+    for c in cores:
+        c.init()
+    rng = random.Random(seed)
+    marks = []
+
+    def run(i):
+        if i == 0:
+            marks.append(dev.hg.topological_index)
+        cores[i].run_consensus()
+
+    reset_launches()
+    with launches_by_site() as sites:
+        t0 = time.perf_counter()
+        for step in range(steps):
+            a, b = rng.sample(range(NODE_N), 2)
+            diff = cores[b].diff(cores[a].known())
+            if rng.random() < 0.5:
+                cores[a].add_transactions([f"tx {step}".encode()])
+            cores[a].sync(cores[b].to_wire(diff))
+            if step % every == 0:
+                run(a)
+        for i in range(NODE_N):
+            run(i)
+        script_s = time.perf_counter() - t0
+    launches = read_launches()
+    dev.hg.close()
+
+    events = stored_events(dev.hg.store, participants)
+    twin_commits = []
+    twin = Core(0, keys[0], participants, InmemStore(participants, NODE_CACHE),
+                commit_callback=twin_commits.append, engine="host")
+    k = 0
+    for m in marks + [len(events)]:
+        for ev in events[k:m]:
+            twin.insert_event(Event(ev.body, r=ev.r, s=ev.s), True)
+        k = max(k, m)
+        twin.run_consensus()
+    order = dev.get_consensus_events()
+    checks = {
+        "consensus_events": twin.get_consensus_events() == order,
+        "blocks": [b.marshal() for b in twin_commits] == [b.marshal() for b in commits],
+        "head_seq": (twin.head, twin.seq) == (dev.head, dev.seq),
+        "last_consensus_round": (twin.get_last_consensus_round_index()
+                                 == dev.get_last_consensus_round_index()),
+        "rounds": all((dev.hg.round(ev.hex()), dev.hg.round_received(ev.hex()))
+                      == (twin.hg.round(ev.hex()), twin.hg.round_received(ev.hex()))
+                      for ev in events),
+        "host_cores_prefix": all(prefix_equal(order, c.get_consensus_events())
+                                 for c in cores[1:]),
+    }
+    res = {"steps": steps, "seed": seed, "consensus_every": every,
+           "engine": {k: getattr(dev.hg.engine, a) for k, a in
+                      (("capacity", "cap"), ("block", "block"), ("k_capacity", "kcap"))},
+           "events": len(events), "decided": len(order), "blocks": len(commits),
+           "passes": len(marks), "last_consensus_round": dev.get_last_consensus_round_index(),
+           "script_s": script_s, "launches": launches, "launches_by_site": sites,
+           "checks": checks}
+    print(f"node core script: {steps} syncs (seed {seed}, consensus every {every}), torch "
+          f"core on {device} with {res['engine']}: {len(events)} events, {len(order)} "
+          f"decided, {len(commits)} blocks, last consensus round "
+          f"{res['last_consensus_round']}, {len(marks)} passes, {script_s:.2f} s; "
+          f"launches {launches} by site {sites}; against the host twin: {checks}")
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"node core script: the torch core differs in {bad}")
+    if not commits:
+        raise AssertionError("node core script: no block committed")
+    check_engine_sites("node core script", launches, sites)
+    return res
+
+
+@functools.lru_cache(maxsize=None)
+def _recording_proxy_class():
+    from babble_tpu_torch.proxy import InmemAppProxy
+
+    class RecordingProxy(InmemAppProxy):
+        """Also keeps each delivered block's round and bytes."""
+
+        def __init__(self):
+            super().__init__()
+            self.blocks = []
+
+        def commit_block(self, block):
+            with self._lock:
+                self.blocks.append((block.round_received, block.marshal()))
+            super().commit_block(block)
+
+    return RecordingProxy
+
+
+def recording_proxy():
+    """An InmemAppProxy that also keeps each delivered block's round and
+    bytes in `.blocks`, in delivery order."""
+    return _recording_proxy_class()()
+
+
+# Blocks a stopped node may have committed and neither delivered nor
+# still queued: the one its commit forwarder held when shutdown was set
+# (ROADMAP §C).
+DELIVERY_ALLOWANCE = 1
+
+
+def queued_blocks(node) -> dict:
+    """{round received: block bytes} of the blocks a stopped node still
+    holds for delivery (its work queue and commit_ch): what its
+    consensus worker committed after shutdown() drained them. Empties
+    both queues; call once every routine of the node has ended."""
+    out = {}
+    for q in (node._work, node.commit_ch):
+        while True:
+            try:
+                item = q.get_nowait()
+            except queue.Empty:
+                break
+            if q is node._work:
+                tag, item = item
+                if tag != "block":
+                    continue
+            out[item.round_received] = item.marshal()
+    return out
+
+
+def delivery_check(node, own: dict):
+    """A stopped node's app delivery against what it committed. `own` is
+    {round: block bytes} of its store's blocks (committed_blocks).
+    Delivered blocks come in round order and equal the committed ones;
+    every committed block was delivered or is still queued
+    (queued_blocks), all but DELIVERY_ALLOWANCE of them, and the queued
+    ones all come after the delivered ones. Returns (ok, counts)."""
+    delivered = node.proxy.blocks
+    rounds = [rr for rr, _ in delivered]
+    held = queued_blocks(node)
+    lost = sorted(own.keys() - set(rounds) - held.keys())
+    ok = (rounds == sorted(set(rounds))
+          and all(own.get(rr) == blk for rr, blk in delivered)
+          and all(own.get(rr) == blk for rr, blk in held.items())
+          and (not held or not rounds or min(held) > max(rounds))
+          and len(lost) <= DELIVERY_ALLOWANCE)
+    return ok, {"delivered": len(rounds), "queued": len(held), "lost": lost}
+
+
+def build_node_net(device):
+    """bench.py's build_host_testnet for the device engine on the port:
+    NODE_N Nodes on InmemTransport (connect_all), each with an
+    InmemStore(participants, NODE_CACHE), a recording InmemAppProxy and
+    test_config(heartbeat=NODE_HEARTBEAT, cache_size=NODE_CACHE), on
+    engine="torch" with the default presize, engine_prewarm on and
+    consensus_interval NODE_INTERVAL as the floor of the adaptive
+    cadence (pipeline_depth 1)."""
+    from babble_tpu_torch.hashgraph import InmemStore
+    from babble_tpu_torch.net import InmemTransport, Peer
+    from babble_tpu_torch.net.inmem_transport import connect_all
+    from babble_tpu_torch.node import Node
+    from babble_tpu_torch.node.config import test_config
+
+    keys, pubs = node_keys(NODE_N)
+    peers = [Peer(f"addr{i}", pub) for i, pub in enumerate(pubs)]
+    participants = {p.pub_key_hex: i for i, p in enumerate(peers)}
+    transports = [InmemTransport(p.net_addr, timeout=2.0) for p in peers]
+    connect_all(transports)
+    nodes = []
+    for i, key in enumerate(keys):
+        conf = test_config(heartbeat=NODE_HEARTBEAT, cache_size=NODE_CACHE)
+        conf.engine = "torch"
+        conf.engine_opts = {"device": device}
+        conf.engine_prewarm = True
+        conf.consensus_interval = NODE_INTERVAL
+        conf.pipeline_depth = 1
+        node = Node(conf, i, key, peers, InmemStore(participants, NODE_CACHE),
+                    transports[i], recording_proxy())
+        node.init()
+        nodes.append(node)
+    return nodes, participants
+
+
+class FailedPassRecords(logging.Handler):
+    """Counts the port's "consensus pass failed" log records."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def emit(self, record):
+        if record.getMessage().startswith("consensus pass failed"):
+            self.count += 1
+
+
+def phase_node(rec, device="cuda"):
+    """(a) node_core_script; (b) a live NODE_N-node net on the card
+    (build_node_net), bench.py's node stage: a transaction every
+    NODE_TX_EVERY_S round robin, warm-up until every node committed
+    NODE_WARM_EVENTS consensus events or NODE_WARM_S, then one
+    NODE_WINDOW_S window (a NODE_PROFILE_S torch.profiler slice in its
+    middle). Gates: round >= 5 everywhere; no node fast-forwarded (a
+    fast-forwarded node's blocks can differ from its peers' for rounds
+    past its frame, and it can deliver again blocks it had delivered:
+    reference behaviours, ROADMAP §C); consensus events and
+    transactions agree on the common prefix; committed blocks equal
+    byte for byte on every round two nodes both hold; every node's
+    routines ended, and delivery_check holds on each; no transaction
+    committed twice or never submitted; the node that decided the
+    most, its events replayed into a fresh host Hashgraph and into a
+    lone TorchHashgraph, gives its blocks byte for byte; every node
+    still on the device engine with no failover and no failed pass;
+    B1 launched at all three engine sites."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore, TorchHashgraph
+
+    res = rec["node"] = {"core_script": node_core_script(device)}
+    rec["node_core_script"] = res["core_script"]
+
+    failed = FailedPassRecords()
+    logger = logging.getLogger("babble_tpu_torch")
+    logger.addHandler(failed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    nodes, participants = build_node_net(device)
+    build_s = time.perf_counter() - t_build
+    submitted = []
+    stop = threading.Event()
+
+    def bombard():
+        i = 0
+        while not stop.is_set():
+            tx = b"bench tx %d" % i
+            nodes[i % NODE_N].submit_tx(tx)
+            submitted.append(tx)
+            i += 1
+            time.sleep(NODE_TX_EVERY_S)
+
+    def committed():
+        return min(len(nd.core.get_consensus_events()) for nd in nodes)
+
+    # One process, dozens of Python threads: bench.py's node stage
+    # raises the interpreter's switch interval to 0.1 s, and so does
+    # this phase; restored below.
+    old_switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.1)
+    bomber = threading.Thread(target=bombard, daemon=True, name="node-phase-bombard")
+    reset_launches()
+    try:
+        with launches_by_site() as sites:
+            for nd in nodes:
+                nd.run_async(gossip=True)
+            bomber.start()
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < NODE_WARM_S and committed() < NODE_WARM_EVENTS:
+                time.sleep(0.25)
+            warm_s = time.monotonic() - t0
+            lat0 = [nd._m_commit_latency.snapshot() for nd in nodes]
+            pass0 = [nd.core._m_pass.snapshot() for nd in nodes]
+            c0, w0 = committed(), time.monotonic()
+            time.sleep((NODE_WINDOW_S - NODE_PROFILE_S) / 2)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                p0 = time.monotonic()
+                time.sleep(NODE_PROFILE_S)
+                prof_wall = time.monotonic() - p0
+            time.sleep(max(0.0, w0 + NODE_WINDOW_S - time.monotonic()))
+            c1, w1 = committed(), time.monotonic()
+            lat = pas = None
+            for nd, l0, q0 in zip(nodes, lat0, pass0):
+                dl, dq = nd._m_commit_latency.snapshot() - l0, nd.core._m_pass.snapshot() - q0
+                lat = dl if lat is None else lat.merge(dl)
+                pas = dq if pas is None else pas.merge(dq)
+            stop.set()
+            bomber.join(timeout=10)
+            for nd in nodes:
+                nd.shutdown()
+            # shutdown() joins its threads for 2 s at most; the
+            # consensus worker drains its pass in flight before it ends.
+            for nd in nodes:
+                nd.state.wait_routines(timeout=60.0)
+    finally:
+        stop.set()
+        sys.setswitchinterval(old_switch)
+        logger.removeHandler(failed)
+        for nd in nodes:
+            nd.shutdown()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    running = [sum(t.is_alive() for t in list(nd.state._threads)) for nd in nodes]
+
+    states = [(nd.core.engine_state, nd.core.engine_failovers) for nd in nodes]
+    engine_bytes = [nd.core.hg.engine.device_memory_stats().get("device_bytes")
+                    if hasattr(nd.core.hg, "engine") else None for nd in nodes]
+    for nd in nodes:
+        close = getattr(nd.core.hg, "close", None)
+        if close is not None:
+            close()
+    orders = [nd.core.get_consensus_events() for nd in nodes]
+    txs = [nd.core.get_consensus_transactions() for nd in nodes]
+    blocks = [committed_blocks(nd.core.hg) for nd in nodes]
+    sent = set(submitted)
+    fast_forwards = [nd.fast_forwards for nd in nodes]
+    ref = max(range(NODE_N), key=lambda k: len(orders[k]))
+    delivery = [delivery_check(nd, b) for nd, b in zip(nodes, blocks)]
+    phases = {}
+    for nd in nodes:
+        for ph, ent in nd.core.phase_ns.items():
+            if ph.startswith("engine_"):
+                phases[ph] = phases.get(ph, 0) + ent[1] / 1e6
+
+    # The reference node's events through a fresh host Hashgraph.
+    t_rep = time.perf_counter()
+    events = stored_events(nodes[ref].core.hg.store, participants)
+    host = Hashgraph(participants, InmemStore(participants, NODE_CACHE))
+    for ev in events:
+        host.insert_event(Event(ev.body, r=ev.r, s=ev.s), True)
+    host.run_consensus()
+    replay_blocks = committed_blocks(host, nodes[ref].core.get_last_consensus_round_index())
+    replay_s = time.perf_counter() - t_rep
+    # The same events through one TorchHashgraph on the card with no
+    # other thread running, in as many pipelined batches as that node had
+    # passes: the pass wall without the net's contention.
+    alone = TorchHashgraph(participants, InmemStore(participants, NODE_CACHE), device=device)
+    passes_ref = nodes[ref].core.phase_ns.get("consensus_collect", [0, 0, 0])[2]
+    batch = -(-len(events) // max(1, passes_ref))
+    _, alone_steps = drive_graph(alone, [Event(ev.body, r=ev.r, s=ev.s) for ev in events],
+                                 batch=batch)
+    alone.close()
+    alone_blocks = committed_blocks(alone, nodes[ref].core.get_last_consensus_round_index())
+
+    checks = {
+        "round_5": all((nd.core.get_last_consensus_round_index() or 0) >= 5 for nd in nodes),
+        "no_fast_forward": not any(fast_forwards),
+        "consensus_events": all(prefix_equal(orders[ref], o) for o in orders),
+        "transactions": all(prefix_equal(txs[ref], t) for t in txs),
+        # Committed blocks agree on every round two nodes both hold.
+        "blocks": bool(blocks[ref]) and all(
+            b[rr] == blocks[ref][rr] for b in blocks for rr in b.keys() & blocks[ref].keys()),
+        "stopped": not any(running),
+        "delivered": all(ok for ok, _ in delivery),
+        "no_duplicate_tx": all(len(t) == len(set(t)) for t in
+                               (nd.proxy.committed_transactions() for nd in nodes)),
+        "all_submitted": all(set(nd.proxy.committed_transactions()) <= sent for nd in nodes),
+        "host_replay": replay_blocks == blocks[ref]
+                       and prefix_equal(host.consensus_events(), orders[ref]),
+        "device_replay": alone_blocks == blocks[ref],
+        "device_engine": all(st == ("device", 0) for st in states),
+        "no_failed_pass": failed.count == 0,
+    }
+    rate = (c1 - c0) / (w1 - w0)
+    prof_sum = profile_summary(prof, prof_wall)
+    res.update({
+        "n": NODE_N, "heartbeat": NODE_HEARTBEAT, "consensus_interval": NODE_INTERVAL,
+        "tx_every_s": NODE_TX_EVERY_S, "build_s": build_s, "warm_s": warm_s,
+        "window_s": w1 - w0, "committed_events_per_s": rate,
+        "commit_latency_p50_ms": lat.quantile(0.5) * 1e3 if lat.count else None,
+        "commit_latency_p99_ms": lat.quantile(0.99) * 1e3 if lat.count else None,
+        "commit_latency_samples": lat.count,
+        "passes_per_node": [nd.core.phase_ns.get("consensus_collect", [0, 0, 0])[2]
+                            for nd in nodes],
+        "window_passes": pas.count,
+        "pass_wall_p50_ms": pas.quantile(0.5) * 1e3 if pas.count else None,
+        "engine_phase_ms": phases, "launches": launches, "launches_by_site": sites,
+        "engine_device_bytes": engine_bytes, "peak_mem_bytes": peak,
+        "profile": prof_sum, "submitted": len(submitted),
+        "decided": [len(o) for o in orders], "blocks": [len(b) for b in blocks],
+        "delivery": [c for _, c in delivery], "routines_running": running,
+        "last_consensus_round": [nd.core.get_last_consensus_round_index() for nd in nodes],
+        "engine_state": states, "failed_pass_records": failed.count,
+        "fast_forwards": fast_forwards, "reference_node": ref,
+        "replay": {"events": len(events), "blocks": len(replay_blocks), "seconds": replay_s},
+        "alone": {"batch": batch, "passes": len(alone_steps), "step_s": alone_steps},
+        "checks": checks, "nvidia_smi": rec.get("nvidia_smi"), "host": rec.get("host")})
+    print(f"node net: {NODE_N} nodes on {device} ({rec.get('nvidia_smi')}; host "
+          f"{rec.get('host')}), built in {build_s:.2f} s, warm-up {warm_s:.1f} s, window "
+          f"{w1 - w0:.1f} s: {rate:,.1f} committed consensus events/s (min over nodes); "
+          f"commit latency p50 {res['commit_latency_p50_ms']} ms, p99 "
+          f"{res['commit_latency_p99_ms']} ms ({lat.count} samples); passes per node "
+          f"{res['passes_per_node']}, median pass wall {res['pass_wall_p50_ms']} ms "
+          f"({pas.count} passes in the window)")
+    print("node net engine phases (ms, all nodes, unsynchronised): " + json.dumps(
+        {k: round(v, 1) for k, v in phases.items()}))
+    print(f"node net launches {launches} by site {sites}; engine device_bytes "
+          f"{engine_bytes}; peak device memory {peak / 2**20:.1f} MiB; card busy "
+          f"{prof_sum.get('device_busy_share')} of a {prof_wall:.1f} s profiled slice")
+    print(f"node net: decided {res['decided']}, blocks {res['blocks']} (delivered, "
+          f"queued at shutdown, lost: {res['delivery']}), last consensus "
+          f"round {res['last_consensus_round']}, engine state {states}, failed-pass records "
+          f"{failed.count}, fast-forwards {fast_forwards}; node {ref} replayed into a host "
+          f"Hashgraph ({len(events)} events, "
+          f"{replay_s:.2f} s): {len(replay_blocks)} blocks; checks {checks}")
+    print(f"node net: node {ref}'s events through one TorchHashgraph alone on {device}, "
+          f"{len(alone_steps)} pipelined batches of {batch}: step wall (insert + collect + "
+          f"dispatch) s " + json.dumps([round(x, 4) for x in alone_steps]))
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"node net: failed checks {bad}")
+    check_engine_sites("node net", launches, sites)
+
+
 def sync_warnings(fn) -> int:
     """Run fn() under torch.cuda.set_sync_debug_mode("warn") and count
     the synchronizing torch operations it flags, on every thread."""
@@ -1248,16 +1744,18 @@ def phase_northstar_incremental(rec, device="cuda"):
 
 def kernels_line(rec) -> dict:
     """One entry per entry point of the strongly-see kernel, timed at
-    the shape the main path launches most (64^3; for the gathered entry
-    the frontier probe's TALLY); `by_shape` holds every shape.
-    `launches` are those of the incremental engine's sustained run (the
-    live node's path); `launches_by_path` gives every path's."""
+    the shape the main path launches most (for the gathered entry the
+    live node's frontier probe, TALLY at n = 4; the counts entry, on no
+    path, at 64^3); `by_shape` holds every shape.
+    `launches` are those of the main path's run, the live 4-node net of
+    phase node (b); `launches_by_path` gives every path's."""
     main_path = rec.get("main_path_launches", {})
-    engine_path = rec.get("sustained") or {}
+    engine_path = rec.get("node") or {}
     by_mode = engine_path.get("launches", {})
     by_path = {"one_shot_headline": {"by_mode": main_path.get("by_mode"),
                                      "by_site": main_path.get("by_site")}}
-    for name in ("sustained", "northstar_incremental", "hashgraph"):
+    for name in ("sustained", "northstar_incremental", "hashgraph", "node_core_script",
+                 "node"):
         r = rec.get(name) or {}
         by_path[name] = {"by_mode": r.get("launches"), "by_site": r.get("launches_by_site")}
     counts = {tuple(r["shape"]): r for r in rec.get("kernel_shapes", [])}
@@ -1267,11 +1765,11 @@ def kernels_line(rec) -> dict:
             ("strongly_see_counts", list(counts.values()), counts.get((64, 64, 64), {}),
              by_mode.get("counts", 0), {"shape": [64, 64, 64]}),
             ("strongly_see_gathered", gathered,
-             next((r for r in gathered if r["name"] == "frontier_probe"
+             next((r for r in gathered if r["name"] == "node_frontier_probe"
                    and r["mode"] == "tally"), {}),
              by_mode.get("matrix", 0) + by_mode.get("tally", 0),
-             {"shape": "frontier_probe tally [64, 64, 64, 1]",
-              "launches_on": "sustained (the incremental engine)",
+             {"shape": "node_frontier_probe tally [4, 4, 4, 1]",
+              "launches_on": "node (the live 4-node net on the torch engine)",
               "launches_by_mode": {k: by_mode.get(k, 0) for k in ("matrix", "tally")},
               "launches_by_site": engine_path.get("launches_by_site", {}),
               "launches_by_path": by_path,
@@ -1323,7 +1821,7 @@ def main() -> int:
               ("northstar", phase_northstar), ("sustained", phase_sustained),
               ("sustained_profile", phase_sustained_profile),
               ("northstar_incremental", phase_northstar_incremental),
-              ("hashgraph", phase_hashgraph)]
+              ("hashgraph", phase_hashgraph), ("node", phase_node)]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1346,7 +1844,7 @@ def main() -> int:
                                   ("host", "build", "headline", "main_path_launches",
                                    "profile", "northstar", "sustained",
                                    "sustained_profile", "northstar_incremental",
-                                   "hashgraph", "phase_s", "total_s")}},
+                                   "hashgraph", "node", "phase_s", "total_s")}},
                      default=str))
     print(smi_line)
     if rec["failed"]:

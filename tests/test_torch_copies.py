@@ -1,0 +1,98 @@
+"""Copy drift: the port's copies of the JAX package's jax-free modules
+(babble_tpu_torch/<path> of babble_tpu/<path>) stay identical to their
+source as text, apart from import statements and the listed lines.
+
+The port may not import the reference package, so it keeps copies
+(common/, gojson.py, crypto/, the hashgraph models and host graph,
+telemetry/, net/, proxy/, service/ingress.py, node/). A fix made in one
+copy and not the other fails here. Every other difference is listed in
+ALLOWED as a range of reference lines, each with its reason."""
+
+from __future__ import annotations
+
+import ast
+import difflib
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "babble_tpu_torch"
+REF = ROOT / "babble_tpu"
+
+# Port files that share a path with the reference but are the port's
+# own code, not copies.
+OWN = {"__init__.py", "devices.py", "service/__init__.py"}
+
+# Reference line ranges (1-based, inclusive) that a copy may replace.
+ALLOWED = {
+    # The package's name in the backend note.
+    "crypto/_fallback.py": [(16, 16)],
+    # The port's docstring; no FileStore yet (ROADMAP A7b); TorchHashgraph.
+    "hashgraph/__init__.py": [(1, 1), (28, 28), (34, 34)],
+    # Names the port's device engine in place of the TPU one.
+    "hashgraph/graph.py": [(6, 6)],
+    # Only the in-memory transport is ported (TCP and faulty: A7b).
+    "net/__init__.py": [(5, 7), (51, 52), (55, 55)],
+    # The port's logger name; the engine, device_verify and compile
+    # cache comments say what the port does; the torch engine is the
+    # default and failover to the host engine is opt-in (threshold 0).
+    "node/config.py": [(12, 12), (87, 94), (131, 136), (149, 153), (180, 188)],
+    # The engine seam (engine="torch", the default), device_verify
+    # refused (B9), the port's logger name.
+    "node/core.py": [(35, 35), (53, 118), (121, 128), (241, 241)],
+    # No P-256 kernel yet (B9): device verify raises, no host fallback.
+    "node/ingest.py": [(14, 18), (91, 107), (202, 218)],
+    # Only InmemAppProxy is ported (file and socket proxies: A7b).
+    "proxy/__init__.py": [(9, 13), (25, 28)],
+}
+
+
+def _copies():
+    out = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(PORT).as_posix()
+        if rel in OWN or rel.startswith("ops/") or not (REF / rel).exists():
+            continue
+        out.append(rel)
+    return out
+
+
+COPIES = _copies()
+
+
+def _import_lines(text):
+    lines = set()
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            lines.update(range(node.lineno, node.end_lineno + 1))
+    return lines
+
+
+def test_the_node_slice_is_copied():
+    for rel in ("node/node.py", "node/core.py", "net/inmem_transport.py",
+                "net/columnar.py", "proxy/inmem_app_proxy.py", "service/ingress.py",
+                "telemetry/registry.py", "hashgraph/graph.py"):
+        assert rel in COPIES, rel
+    assert set(ALLOWED) <= set(COPIES)
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_matches_reference(rel):
+    ref_text = (REF / rel).read_text()
+    port_text = (PORT / rel).read_text()
+    a, b = ref_text.splitlines(), port_text.splitlines()
+    ia, ib = _import_lines(ref_text), _import_lines(port_text)
+    allowed = ALLOWED.get(rel, [])
+    bad = []
+    matcher = difflib.SequenceMatcher(None, a, b, autojunk=False)
+    for tag, i1, i2, j1, j2 in matcher.get_opcodes():
+        if tag == "equal":
+            continue
+        if all(k + 1 in ia for k in range(i1, i2)) and all(k + 1 in ib for k in range(j1, j2)):
+            continue  # import statements only
+        lo, hi = i1 + 1, max(i2, i1 + 1)
+        if not any(s <= lo and hi <= e for s, e in allowed):
+            bad.append(f"reference lines {i1 + 1}-{i2} vs port lines {j1 + 1}-{j2}:\n"
+                       + "\n".join(difflib.unified_diff(a[i1:i2], b[j1:j2], lineterm="")))
+    assert not bad, f"{rel} drifted from babble_tpu/{rel}:\n" + "\n\n".join(bad)

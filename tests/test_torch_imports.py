@@ -46,6 +46,8 @@ def test_runtime_import_closure_is_clean():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "babble_tpu_torch.ops.hopper_kernels" in res["modules"]
     assert "babble_tpu_torch.hashgraph.torch_graph" in res["modules"]
+    for name in ("node.node", "node.core", "net.inmem_transport", "service.ingress"):
+        assert f"babble_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
 
