@@ -13,7 +13,12 @@ runs consensus on the incremental engine (hashgraph/), and the node on
 top: `Core` and `Node` (node/) with the in-memory transport (net/), the
 in-process app proxy (proxy/), the admission plane (service/) and the
 telemetry they record into (telemetry/), where `Core(engine="torch")`
-runs consensus on `TorchHashgraph`.
+runs consensus on `TorchHashgraph`. A node runs in a process of its own
+through the CLI (`python -m babble_tpu_torch.cli keygen|run|version`):
+TCP gossip (net/tcp_transport.py), the sqlite `FileStore`, the socket
+and journal app proxies (proxy/), and the HTTP service (service/) with
+/Stats, /metrics and /debug/*; `dummy.py` is the chat client an app
+runs beside it.
 
 The package imports torch, numpy and the standard library only (and
 `cryptography` when it is installed). Entry points run on the CUDA
@@ -23,4 +28,33 @@ wrapper takes its plain PyTorch version.
 
 from .devices import resolve_device
 
-__all__ = ["resolve_device"]
+
+def _read_version() -> str:
+    """The version from the installed distribution's metadata, or in a
+    checkout from the adjacent pyproject.toml (one source for both
+    packages)."""
+    from importlib.metadata import PackageNotFoundError, version
+
+    try:
+        return version("babble-tpu")
+    except PackageNotFoundError:
+        pass
+    try:
+        import os
+        import re
+
+        pyproject = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "pyproject.toml")
+        with open(pyproject, encoding="utf-8") as f:
+            m = re.search(r'^version\s*=\s*"([^"]+)"', f.read(), re.M)
+        if m:
+            return m.group(1)
+    except OSError:
+        pass
+    return "0+unknown"
+
+
+__version__ = _read_version()
+
+__all__ = ["resolve_device", "__version__"]

@@ -3,7 +3,7 @@ of babble_tpu/hashgraph): events with Go-compatible identity, blocks,
 roots, frames, round rows, the in-memory store, the host `Hashgraph`
 (the reference semantics, and the oracle the device graph is held
 against) and `TorchHashgraph`, which runs consensus on the port's
-incremental engine. The sqlite `FileStore` is not ported yet."""
+incremental engine, and the sqlite `FileStore`."""
 
 from .event import Event, EventBody, EventCoordinates, WireBody, WireEvent
 from .block import Block
@@ -12,6 +12,7 @@ from .frame import Frame
 from .round_info import RoundInfo, RoundEvent, Trilean
 from .store import Store
 from .inmem_store import InmemStore
+from .file_store import FileStore
 from .graph import ForkError, Hashgraph, InsertError
 from .health import BlockHashChain
 from .participant_events import ParticipantEventsCache
@@ -32,6 +33,7 @@ __all__ = [
     "Trilean",
     "Store",
     "InmemStore",
+    "FileStore",
     "BlockHashChain",
     "ForkError",
     "Hashgraph",

@@ -1281,8 +1281,9 @@ class IncrementalEngine:
 
     def device_memory_stats(self) -> dict:
         """Device-memory plane: bytes of the engine's resident tensors,
-        the host-mirror numpy bytes, and on CUDA the card's total and
-        allocated memory and a projected-peers headroom estimate (the
+        the host-mirror numpy bytes, and on CUDA the card's total, the
+        process's allocated and peak allocated memory and a
+        projected-peers headroom estimate (the
         dominant resident terms are O(n^2 K)). Never raises — it runs
         inside a metrics scrape."""
         dev = host = 0
@@ -1308,6 +1309,7 @@ class IncrementalEngine:
             budget = int(torch.cuda.get_device_properties(self.device).total_memory)
             out["hbm_budget_bytes"] = budget
             out["hbm_in_use_bytes"] = int(torch.cuda.memory_allocated(self.device))
+            out["hbm_peak_bytes"] = int(torch.cuda.max_memory_allocated(self.device))
         except Exception:  # noqa: BLE001 - a scrape must not fail
             budget = 0
         if budget and dev > 0:

@@ -168,7 +168,12 @@ def sampled_bytes(values: Iterable, count: int, sizer,
         return 0
     seen = 0
     acc = 0
-    for v in islice(values, sample):
+    # Copy the entries out in one call before sizing any: the caches
+    # are written by other threads while a scrape runs, and an iterator
+    # held across the sizer's Python code raises "OrderedDict mutated
+    # during iteration" (one list() of a dict view runs without a
+    # thread switch; islice() then list() could switch in between).
+    for v in islice(list(values), sample):
         acc += sizer(v)
         seen += 1
     if seen == 0:

@@ -84,7 +84,21 @@ line is not printed):
               bytes across nodes and against one node's events replayed
               into a host Hashgraph, every committed block delivered or
               still queued at shutdown, no fast-forward, no failover and
-              no failed pass.
+              no failed pass;
+14. cli     — the port's CLI, one node per process: 4 processes of
+              `python -m babble_tpu_torch.cli run --engine torch` on the
+              card (TCP gossip on localhost, --store file, heartbeat
+              10 ms, consensus interval 250 ms), one DummyClient each, a
+              transaction every 2 ms; warm-up, one 15 s window with a 2 s
+              /debug/profile capture of node 0 (its torch.profiler trace
+              gives the strongly-see kernel's launches in a CLI
+              process), SIGTERM, a restart of all four on their
+              databases (bootstrap), 5 more transactions: boot seconds,
+              committed consensus events/s and commit latency from each
+              node's /Stats and /metrics, each process's median pass
+              wall and peak device memory; gates on the clients' logs,
+              exit codes, rounds after the restart, no failover and no
+              failed pass in any process's stderr.
 
 Each path that launches the kernel (the one-shot main path, sustained,
 northstar_incremental, hashgraph, both parts of node) runs with every
@@ -173,6 +187,24 @@ NODE_WARM_EVENTS = 1500
 NODE_WARM_S = 30.0
 NODE_WINDOW_S = 15.0
 NODE_PROFILE_S = 3.0
+# Phase cli: the reference's 4-node demo (docs/usage.rst:31-34) as
+# processes of the port's CLI, at phase node (b)'s cadence.
+CLI_N = 4
+CLI_HEARTBEAT_MS = 10
+CLI_INTERVAL_MS = 250
+CLI_TX_EVERY_S = 0.002
+CLI_WARM_ROUND = 5
+CLI_WARM_S = 30.0
+CLI_WINDOW_S = 15.0
+CLI_PROFILE_S = 2.0
+CLI_BOOT_S = 180.0
+CLI_STOP_S = 30.0
+CLI_MORE_TXS = 5
+CLI_MORE_S = 60.0
+# The port's log line for a failed consensus pass (node/node.py), which
+# FailedPassRecords counts in-process and phase cli counts in each CLI
+# process's stderr.
+FAILED_PASS = "consensus pass failed"
 ENGINE_BATCH = 4096
 PROFILED_BATCH = 8  # the steady pass sustained_profile traces
 KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
@@ -660,6 +692,19 @@ def phase_profile(rec, device="cuda"):
         print(f"  {row['us'] / 1e3:9.2f} ms  x{row['count']:6d}  {row['name']}")
 
 
+def union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, t in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, t
+        else:
+            cur_e = max(cur_e, t)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
 def profile_summary(prof, wall_s) -> dict:
     """The card's busy time (union of kernel intervals) and share of
     `wall_s`, device time by kernel, and B1's device time per launch,
@@ -677,15 +722,7 @@ def profile_summary(prof, wall_s) -> dict:
     if not kern:
         return {"wall_s": wall_s, "device_busy_share": "not measured",
                 "sync_calls": syncs}
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in kern)
-    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, t in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, t
-        else:
-            cur_e = max(cur_e, t)
-    busy_us += cur_e - cur_s
+    busy_us = union_us((ev.time_range.start, ev.time_range.end) for ev in kern)
     by_name = {}
     for ev in kern:
         tot, cnt = by_name.get(ev.name, (0.0, 0))
@@ -1373,7 +1410,7 @@ class FailedPassRecords(logging.Handler):
         self.count = 0
 
     def emit(self, record):
-        if record.getMessage().startswith("consensus pass failed"):
+        if record.getMessage().startswith(FAILED_PASS):
             self.count += 1
 
 
@@ -1547,6 +1584,11 @@ def phase_node(rec, device="cuda"):
                             for nd in nodes],
         "window_passes": pas.count,
         "pass_wall_p50_ms": pas.quantile(0.5) * 1e3 if pas.count else None,
+        # Committed events per pass (the slowest node's growth over the
+        # mean passes per node), and the median pass wall per event.
+        "window_events_per_pass": (c1 - c0) * NODE_N / pas.count if pas.count else None,
+        "pass_ms_per_event": (pas.quantile(0.5) * 1e3 * pas.count / ((c1 - c0) * NODE_N)
+                              if pas.count and c1 > c0 else None),
         "engine_phase_ms": phases, "launches": launches, "launches_by_site": sites,
         "engine_device_bytes": engine_bytes, "peak_mem_bytes": peak,
         "profile": prof_sum, "submitted": len(submitted),
@@ -1556,7 +1598,8 @@ def phase_node(rec, device="cuda"):
         "engine_state": states, "failed_pass_records": failed.count,
         "fast_forwards": fast_forwards, "reference_node": ref,
         "replay": {"events": len(events), "blocks": len(replay_blocks), "seconds": replay_s},
-        "alone": {"batch": batch, "passes": len(alone_steps), "step_s": alone_steps},
+        "alone": {"batch": batch, "passes": len(alone_steps), "step_s": alone_steps,
+                  "ms_per_event": [x * 1e3 / batch for x in alone_steps]},
         "checks": checks, "nvidia_smi": rec.get("nvidia_smi"), "host": rec.get("host")})
     print(f"node net: {NODE_N} nodes on {device} ({rec.get('nvidia_smi')}; host "
           f"{rec.get('host')}), built in {build_s:.2f} s, warm-up {warm_s:.1f} s, window "
@@ -1564,7 +1607,8 @@ def phase_node(rec, device="cuda"):
           f"commit latency p50 {res['commit_latency_p50_ms']} ms, p99 "
           f"{res['commit_latency_p99_ms']} ms ({lat.count} samples); passes per node "
           f"{res['passes_per_node']}, median pass wall {res['pass_wall_p50_ms']} ms "
-          f"({pas.count} passes in the window)")
+          f"({pas.count} passes in the window, {res['window_events_per_pass']} events per "
+          f"pass, {res['pass_ms_per_event']} ms per event)")
     print("node net engine phases (ms, all nodes, unsynchronised): " + json.dumps(
         {k: round(v, 1) for k, v in phases.items()}))
     print(f"node net launches {launches} by site {sites}; engine device_bytes "
@@ -1578,11 +1622,483 @@ def phase_node(rec, device="cuda"):
           f"{replay_s:.2f} s): {len(replay_blocks)} blocks; checks {checks}")
     print(f"node net: node {ref}'s events through one TorchHashgraph alone on {device}, "
           f"{len(alone_steps)} pipelined batches of {batch}: step wall (insert + collect + "
-          f"dispatch) s " + json.dumps([round(x, 4) for x in alone_steps]))
+          f"dispatch) s " + json.dumps([round(x, 4) for x in alone_steps]) + ", ms per event "
+          + json.dumps([round(x * 1e3 / batch, 4) for x in alone_steps]))
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"node net: failed checks {bad}")
     check_engine_sites("node net", launches, sites)
+
+
+# -- phase cli: the port's CLI, one node per process ------------------
+
+def free_ports(k):
+    """k distinct localhost ports, each free when probed, drawn at random
+    below the kernel's ephemeral range: a port in that range can be
+    handed to an outgoing connection (a peer's gossip, a client's call)
+    between the probe and the node's bind, or after a node releases it
+    for a restart."""
+    import random
+    import socket
+
+    low = 32768
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        pass
+    rng, ports = random.Random(), []
+    while len(ports) < k:
+        port = rng.randrange(10000, low)
+        if port in ports:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        ports.append(port)
+    return ports
+
+
+def cli_env():
+    """The CLI processes' environment: the repository on the path, one
+    intra-op thread each (four engines share the host's cores)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
+    return env
+
+
+def http_get(addr, path, timeout=30.0) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=timeout) as r:
+        return r.read()
+
+
+def last_round(stats) -> int:
+    lcr = stats["last_consensus_round"]
+    return -1 if lcr == "nil" else int(lcr)
+
+
+class RoundLogState:
+    """A DummyClient's chat state keyed by round received: a block
+    delivered again (a restart re-emits the blocks above the store's
+    delivered anchor) must carry the same transactions."""
+
+    def __init__(self):
+        self.rounds = {}
+        self.redelivered = 0
+        self.conflicts = 0
+        self.lock = threading.Lock()
+
+    def commit_block(self, block) -> None:
+        txs = [tx.decode(errors="replace") for tx in block.transactions or []]
+        with self.lock:
+            prev = self.rounds.get(block.round_received)
+            if prev is not None:
+                self.redelivered += 1
+                self.conflicts += prev != txs
+                return
+            self.rounds[block.round_received] = txs
+
+    def log(self):
+        """(transactions in round order, the rounds held)."""
+        with self.lock:
+            rounds = sorted(self.rounds)
+            txs = [tx for r in rounds for tx in self.rounds[r]]
+        return txs, rounds
+
+    def get_committed_transactions(self):
+        return self.log()[0]
+
+
+def cli_logs_agree(clients) -> bool:
+    """The clients' committed transaction logs agree: every round two
+    clients both received carries the same transactions, so their logs
+    are equal up to the rounds a client never received (counted by
+    cli_lost_rounds)."""
+    with contextlib.ExitStack() as stack:
+        for c in clients:
+            stack.enter_context(c.state.lock)
+        by_round = [dict(c.state.rounds) for c in clients]
+    return all(a[r] == b[r] for a in by_round for b in by_round for r in a.keys() & b.keys())
+
+
+def cli_lost_rounds(clients) -> list:
+    """Per client, the rounds some client received a block for, below
+    its own last received round, that it never received."""
+    union = set().union(*(c.state.rounds.keys() for c in clients))
+    out = []
+    for c in clients:
+        mine = c.state.rounds.keys()
+        top = max(mine, default=-1)
+        out.append(sorted(r for r in union if r < top and r not in mine))
+    return out
+
+
+def cli_delivered(lost, restart_rounds) -> bool:
+    """Each node lost at most DELIVERY_ALLOWANCE blocks at each of its
+    two stops (the reference's shutdown races, ROADMAP §C): the rounds
+    up to its round after the restart, and those after it."""
+    return all(sum(r <= top for r in x) <= DELIVERY_ALLOWANCE
+               and sum(r > top for r in x) <= DELIVERY_ALLOWANCE
+               for x, top in zip(lost, restart_rounds))
+
+
+class CliNet:
+    """CLI_N processes of `python -m babble_tpu_torch.cli run` on
+    localhost (TCP gossip, --store file, socket app proxies), one
+    DummyClient per node in this process."""
+
+    def __init__(self, workdir, device):
+        self.workdir, self.device = workdir, device
+        ports = free_ports(4 * CLI_N)
+        self.ports = [ports[4 * i:4 * i + 4] for i in range(CLI_N)]
+        self.datadirs = [os.path.join(workdir, f"node{i}") for i in range(CLI_N)]
+        keygens = [subprocess.Popen(
+            [sys.executable, "-m", "babble_tpu_torch.cli", "keygen", "--datadir", d],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=cli_env(), cwd=ROOT)
+            for d in self.datadirs]
+        pubs = []
+        for p in keygens:
+            out, err = p.communicate(timeout=120)
+            if p.returncode != 0:
+                raise RuntimeError(f"cli keygen failed: {err[-2000:]}")
+            pubs.append(out.split("PublicKey: ")[1].split()[0])
+        peers = [{"NetAddr": f"127.0.0.1:{self.ports[i][0]}", "PubKeyHex": pubs[i]}
+                 for i in range(CLI_N)]
+        for d in self.datadirs:
+            with open(os.path.join(d, "peers.json"), "w") as f:
+                json.dump(peers, f)
+        self.service = [f"127.0.0.1:{p[3]}" for p in self.ports]
+        self.procs, self.stderr = [], []
+        self.clients = []
+
+    def start(self, tag):
+        """Start every node; returns each one's seconds from the start
+        to its service answering /Stats (boot: torch import, the CUDA
+        context, the engine's prewarm and, on a restart, the store's
+        bootstrap)."""
+        self.procs, t0 = [], []
+        for i, (node, proxy, client, service) in enumerate(self.ports):
+            log = open(os.path.join(self.workdir, f"node{i}.{tag}.stderr"), "w+")
+            self.stderr.append(log)
+            t0.append(time.monotonic())
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-m", "babble_tpu_torch.cli", "run",
+                 "--datadir", self.datadirs[i], "--engine", "torch",
+                 "--engine_device", self.device, "--store", "file",
+                 "--heartbeat", str(CLI_HEARTBEAT_MS),
+                 "--consensus_interval", str(CLI_INTERVAL_MS),
+                 "--node_addr", f"127.0.0.1:{node}", "--proxy_addr", f"127.0.0.1:{proxy}",
+                 "--client_addr", f"127.0.0.1:{client}",
+                 "--service_addr", f"127.0.0.1:{service}", "--log_level", "warning"],
+                stdout=subprocess.DEVNULL, stderr=log, env=cli_env(), cwd=ROOT))
+        if not self.clients:
+            from babble_tpu_torch.dummy import DummyClient
+
+            for _, proxy, client, _ in self.ports:
+                c = DummyClient(f"127.0.0.1:{proxy}", f"127.0.0.1:{client}")
+                c.state = RoundLogState()
+                self.clients.append(c)
+        boot = [None] * CLI_N
+        deadline = time.monotonic() + CLI_BOOT_S
+        while None in boot:
+            for i, p in enumerate(self.procs):
+                if boot[i] is not None:
+                    continue
+                if p.poll() is not None:
+                    raise RuntimeError(f"cli node {i} exited {p.returncode} while booting: "
+                                       + self.tail(i))
+                try:
+                    http_get(self.service[i], "/Stats", timeout=2.0)
+                    boot[i] = time.monotonic() - t0[i]
+                except OSError:
+                    pass
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"cli nodes not up after {CLI_BOOT_S} s: {boot}")
+            time.sleep(0.1)
+        return boot
+
+    def tail(self, i):
+        log = self.stderr[-CLI_N + i]
+        log.flush()
+        log.seek(0)
+        return log.read()[-3000:]
+
+    def stats(self):
+        return [json.loads(http_get(a, "/Stats")) for a in self.service]
+
+    def metrics(self, name):
+        """Each node's `name` histogram from its /metrics, parsed with
+        the port's promtext."""
+        from babble_tpu_torch.telemetry import promtext
+
+        out = []
+        for a in self.service:
+            samples, _ = promtext.parse(http_get(a, "/metrics").decode())
+            out.append(promtext.histogram_snapshot(samples, name))
+        return out
+
+    def stop(self):
+        """SIGTERM every node; (exit codes, seconds to exit), None for a
+        node still running after CLI_STOP_S (then killed)."""
+        import signal
+
+        t0 = time.monotonic()
+        for p in self.procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        rcs, secs = [], []
+        for p in self.procs:
+            try:
+                p.wait(timeout=max(0.1, t0 + CLI_STOP_S - time.monotonic()))
+                rcs.append(p.returncode)
+                secs.append(time.monotonic() - t0)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                rcs.append(None)
+                secs.append(None)
+        return rcs, secs
+
+    def count_lines(self, text) -> int:
+        """Lines holding `text` in every node's stderr, both runs."""
+        n = 0
+        for log in self.stderr:
+            log.flush()
+            log.seek(0)
+            n += sum(text in line for line in log)
+        return n
+
+    def error_lines(self, limit=8) -> list:
+        out = []
+        for log in self.stderr:
+            log.flush()
+            log.seek(0)
+            out += [f"{os.path.basename(log.name)}: {line.strip()[:300]}"
+                    for line in log if "ERROR" in line or "Traceback" in line][:limit]
+        return out
+
+    def close(self):
+        for c in self.clients:
+            c.close()
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in self.stderr:
+            log.close()
+
+
+def profile_trace_summary(path, seconds) -> dict:
+    """Kernel launches in a /debug/profile Chrome trace: all kernels,
+    the strongly-see kernel's launches and device time per launch, and
+    the card's busy share (union of kernel intervals) of the capture."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    ss = [e for e in kern if "strongly_see_kernel" in e.get("name", "")]
+    busy_us = union_us((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in kern)
+    return {"seconds": seconds, "kernel_launches": len(kern),
+            "strongly_see_launches": len(ss),
+            "strongly_see_us_per_launch": (sum(float(e.get("dur", 0)) for e in ss) / len(ss)
+                                           if ss else None),
+            "device_busy_share": busy_us * 1e-6 / seconds if kern else "not measured",
+            "trace_bytes": os.path.getsize(path)}
+
+
+def phase_cli(rec, device="cuda"):
+    """The port's CLI on the card: CLI_N processes of `python -m
+    babble_tpu_torch.cli run --engine torch` (TCP gossip on localhost,
+    --store file, heartbeat CLI_HEARTBEAT_MS, consensus interval
+    CLI_INTERVAL_MS, the rest of Config's defaults: failover off) with
+    one DummyClient each in this process, a transaction every
+    CLI_TX_EVERY_S round robin. Warm-up until every node's /Stats says
+    round >= CLI_WARM_ROUND (cap CLI_WARM_S), one CLI_WINDOW_S window
+    (a CLI_PROFILE_S /debug/profile capture of node 0 in its middle),
+    SIGTERM to all (each must exit 0 within CLI_STOP_S), a restart of
+    all on their database files (bootstrap), and on until CLI_MORE_TXS
+    more transactions commit. Gates: the clients' logs agree before the
+    stop and, after the restart, before the final stop (cli_logs_agree);
+    each client lacks at most DELIVERY_ALLOWANCE rounds at each of its
+    node's two stops (the reference's shutdown races, ROADMAP §C), and a
+    block delivered again carries the same transactions; every node
+    on the device engine with no failover; no failed pass in any
+    process's stderr; after the restart every node's round is at least
+    its round before the stop; the capture holds strongly-see launches."""
+    import tempfile
+
+    from babble_tpu_torch.proxy.jsonrpc import JSONRPCError
+
+    t_phase = time.monotonic()
+    workdir = tempfile.mkdtemp(prefix="babble-cli-")
+    net = CliNet(workdir, device)
+    res = rec["cli"] = {"n": CLI_N, "heartbeat_ms": CLI_HEARTBEAT_MS,
+                        "consensus_interval_ms": CLI_INTERVAL_MS, "tx_every_s": CLI_TX_EVERY_S,
+                        "workdir": workdir}
+    submitted = []
+    stop = threading.Event()
+
+    def bombard():
+        i = 0
+        while not stop.is_set():
+            tx = b"cli tx %d" % i
+            try:
+                net.clients[i % CLI_N].submit_tx(tx)
+                submitted.append(tx)
+            except (OSError, JSONRPCError):
+                pass  # a node restarting
+            i += 1
+            time.sleep(CLI_TX_EVERY_S)
+
+    def committed_txs():
+        return min(len(c.state.log()[0]) for c in net.clients)
+
+    bomber = threading.Thread(target=bombard, daemon=True, name="cli-phase-bombard")
+    try:
+        res["boot_s"] = net.start("run1")
+        bomber.start()
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < CLI_WARM_S and min(
+                last_round(s) for s in net.stats()) < CLI_WARM_ROUND:
+            time.sleep(0.25)
+        res["warm_s"] = time.monotonic() - t0
+
+        s0, w0 = net.stats(), time.monotonic()
+        lat0 = net.metrics("babble_commit_latency_seconds")
+        pass0 = net.metrics("babble_engine_pass_seconds")
+        time.sleep((CLI_WINDOW_S - CLI_PROFILE_S) / 2)
+        # The capture answers after it has written its trace, which can
+        # outlast the window: ask for it on a thread of its own.
+        prof = {}
+        profiler = threading.Thread(target=lambda: prof.update(json.loads(http_get(
+            net.service[0], f"/debug/profile?seconds={CLI_PROFILE_S}", timeout=300))),
+            daemon=True, name="cli-phase-profile")
+        profiler.start()
+        time.sleep(max(0.0, w0 + CLI_WINDOW_S - time.monotonic()))
+        s1, w1 = net.stats(), time.monotonic()
+        lat1 = net.metrics("babble_commit_latency_seconds")
+        pass1 = net.metrics("babble_engine_pass_seconds")
+        capacity = [json.loads(http_get(a, "/debug/capacity")).get("engine", {})
+                    for a in net.service]
+        profiler.join(timeout=300)
+        res["profile"] = profile_trace_summary(os.path.join(prof["trace_dir"], "trace.json"),
+                                               prof["seconds"])
+
+        rates = [(int(b["consensus_events"]) - int(a["consensus_events"])) / (w1 - w0)
+                 for a, b in zip(s0, s1)]
+        lat = None
+        for a, b in zip(lat0, lat1):
+            lat = (b - a) if lat is None else lat.merge(b - a)
+        passes = [b - a for a, b in zip(pass0, pass1)]
+        states_run1 = [(s["engine_state"], s["engine_failovers"]) for s in s1]
+        logs_before = cli_logs_agree(net.clients)
+
+        before = [last_round(s) for s in net.stats()]
+        txs_before = committed_txs()
+        stop_rcs, stop_s = net.stop()
+
+        res["restart_boot_s"] = net.start("run2")
+        after_boot = [last_round(s) for s in net.stats()]
+        t_more = time.monotonic()
+        while (time.monotonic() - t_more < CLI_MORE_S
+               and committed_txs() < txs_before + CLI_MORE_TXS):
+            time.sleep(0.25)
+        more_s = time.monotonic() - t_more
+        s2 = net.stats()
+        stop.set()
+        bomber.join(timeout=10)
+        logs_after = cli_logs_agree(net.clients)
+        final_rcs, final_s = net.stop()
+        failed = net.count_lines(FAILED_PASS)
+        commit_failed = net.count_lines("commit failed")
+        divergence = net.count_lines("CONSENSUS DIVERGENCE")
+        errors = net.error_lines()
+        lost = cli_lost_rounds(net.clients)
+        checks = {
+            "round_5": all(last_round(s) >= CLI_WARM_ROUND for s in s1),
+            "device_engine": all(st == ("device", "0") for st in states_run1)
+                             and all((s["engine_state"], s["engine_failovers"]) == ("device", "0")
+                                     for s in s2),
+            "no_failed_pass": failed == 0,
+            "stopped_0": stop_rcs == [0] * CLI_N,
+            "logs_before": logs_before,
+            "rounds_after_restart": all(a >= b for a, b in zip(after_boot, before)),
+            "more_txs": committed_txs() >= txs_before + CLI_MORE_TXS,
+            "logs_after": logs_after,
+            "redelivered_same": all(c.state.conflicts == 0 for c in net.clients),
+            "delivered": cli_delivered(lost, after_boot),
+            "profile_strongly_see": res["profile"]["strongly_see_launches"] > 0,
+            "final_stop_0": final_rcs == [0] * CLI_N,
+        }
+    except BaseException:
+        # Show what the node processes said before the phase fails.
+        for i, p in enumerate(net.procs):
+            print(f"cli net: node {i} exit code {p.poll()}; its stderr ends:\n"
+                  + net.tail(i), flush=True)
+        raise
+    finally:
+        stop.set()
+        net.close()
+    res.update({
+        "window_s": w1 - w0, "committed_events_per_s": min(rates),
+        "committed_events_per_s_by_node": rates,
+        "commit_latency_p50_ms": lat.quantile(0.5) * 1e3 if lat.count else None,
+        "commit_latency_p99_ms": lat.quantile(0.99) * 1e3 if lat.count else None,
+        "commit_latency_samples": lat.count,
+        "pass_wall_p50_ms_by_node": [p.quantile(0.5) * 1e3 if p.count else None for p in passes],
+        "window_passes_by_node": [p.count for p in passes],
+        # Committed events per pass, and the median pass wall per event.
+        "events_per_pass_by_node": [r * (w1 - w0) / p.count if p.count else None
+                                    for r, p in zip(rates, passes)],
+        "pass_ms_per_event_by_node": [p.quantile(0.5) * 1e3 * p.count / (r * (w1 - w0))
+                                      if p.count and r else None
+                                      for r, p in zip(rates, passes)],
+        "peak_device_bytes_by_node": [c.get("hbm_peak_bytes") for c in capacity],
+        "engine_device_bytes_by_node": [c.get("device_bytes") for c in capacity],
+        "last_consensus_round": {"window_end": [last_round(s) for s in s1],
+                                 "before_stop": before, "after_restart": after_boot,
+                                 "end": [last_round(s) for s in s2]},
+        "stop_s": stop_s, "stop_rcs": stop_rcs, "final_stop_s": final_s,
+        "final_stop_rcs": final_rcs, "failed_pass_lines": failed,
+        "commit_failed_lines": commit_failed, "divergence_lines": divergence,
+        "error_lines": errors,
+        "committed_txs": {"before_stop": txs_before, "end": committed_txs()},
+        "more_txs_s": more_s, "submitted": len(submitted),
+        "redelivered_rounds": [c.state.redelivered for c in net.clients],
+        "lost_rounds": lost, "checks": checks,
+        "phase_s": time.monotonic() - t_phase,
+        "nvidia_smi": rec.get("nvidia_smi"), "host": rec.get("host")})
+    print(f"cli net: {CLI_N} processes of babble_tpu_torch.cli run on {device} "
+          f"({rec.get('nvidia_smi')}; host {rec.get('host')}): boot s {res['boot_s']}, "
+          f"restart boot s {res['restart_boot_s']}, warm-up {res['warm_s']:.1f} s, window "
+          f"{res['window_s']:.1f} s: {res['committed_events_per_s']:,.1f} committed consensus "
+          f"events/s (min over nodes; by node {[round(r, 1) for r in rates]}); commit latency "
+          f"p50 {res['commit_latency_p50_ms']} ms, p99 {res['commit_latency_p99_ms']} ms "
+          f"({lat.count} samples)")
+    print(f"cli net: median pass wall by process {res['pass_wall_p50_ms_by_node']} ms "
+          f"({res['window_passes_by_node']} passes in the window, "
+          f"{[round(x, 1) if x else x for x in res['events_per_pass_by_node']]} events "
+          f"per pass, {[round(x, 4) if x else x for x in res['pass_ms_per_event_by_node']]}"
+          f" ms per event; phase node (b), one "
+          f"process: 4.25-20 s; one TorchHashgraph alone: 0.08-0.48 s); peak device memory "
+          f"by process {res['peak_device_bytes_by_node']} bytes; profile of node 0: "
+          f"{res['profile']}")
+    print(f"cli net: rounds {res['last_consensus_round']}, stop exit codes {stop_rcs} in "
+          f"{stop_s} s, final {final_rcs} in {final_s} s, failed-pass lines "
+          f"{failed}, commit-failed lines {commit_failed}, divergence-sentinel lines "
+          f"{divergence}, committed txs "
+          f"{res['committed_txs']}, redelivered "
+          f"rounds {res['redelivered_rounds']}, lost rounds {lost}; phase "
+          f"{res['phase_s']:.1f} s; checks {checks}")
+    for line in errors:
+        print(f"cli net stderr: {line}")
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"cli net: failed checks {bad}")
 
 
 def sync_warnings(fn) -> int:
@@ -1748,7 +2264,10 @@ def kernels_line(rec) -> dict:
     live node's frontier probe, TALLY at n = 4; the counts entry, on no
     path, at 64^3); `by_shape` holds every shape.
     `launches` are those of the main path's run, the live 4-node net of
-    phase node (b); `launches_by_path` gives every path's."""
+    phase node (b); `launches_by_path` gives every path's. The CLI
+    path's kernel runs in its node processes, where this process's
+    counts cannot see it: its launches are those a torch.profiler
+    capture of one node process recorded (phase cli)."""
     main_path = rec.get("main_path_launches", {})
     engine_path = rec.get("node") or {}
     by_mode = engine_path.get("launches", {})
@@ -1758,6 +2277,10 @@ def kernels_line(rec) -> dict:
                  "node"):
         r = rec.get(name) or {}
         by_path[name] = {"by_mode": r.get("launches"), "by_site": r.get("launches_by_site")}
+    cli_profile = (rec.get("cli") or {}).get("profile") or {}
+    by_path["cli"] = {"profiled_launches": cli_profile.get("strongly_see_launches"),
+                      "profile_s": cli_profile.get("seconds"),
+                      "of": "node 0 of the CLI testnet, /debug/profile (torch.profiler)"}
     counts = {tuple(r["shape"]): r for r in rec.get("kernel_shapes", [])}
     gathered = rec.get("gathered_shapes", [])
     entries = []
@@ -1773,6 +2296,7 @@ def kernels_line(rec) -> dict:
               "launches_by_mode": {k: by_mode.get(k, 0) for k in ("matrix", "tally")},
               "launches_by_site": engine_path.get("launches_by_site", {}),
               "launches_by_path": by_path,
+              "cli_profile_launches": cli_profile.get("strongly_see_launches"),
               "northstar_launches_by_site":
                   (rec.get("northstar") or {}).get("launches_by_site", {})})):
         err = max((r["max_abs_err"] for r in rows), default=None)
@@ -1821,7 +2345,7 @@ def main() -> int:
               ("northstar", phase_northstar), ("sustained", phase_sustained),
               ("sustained_profile", phase_sustained_profile),
               ("northstar_incremental", phase_northstar_incremental),
-              ("hashgraph", phase_hashgraph), ("node", phase_node)]
+              ("hashgraph", phase_hashgraph), ("node", phase_node), ("cli", phase_cli)]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1844,7 +2368,7 @@ def main() -> int:
                                   ("host", "build", "headline", "main_path_launches",
                                    "profile", "northstar", "sustained",
                                    "sustained_profile", "northstar_incremental",
-                                   "hashgraph", "node", "phase_s", "total_s")}},
+                                   "hashgraph", "node", "cli", "phase_s", "total_s")}},
                      default=str))
     print(smi_line)
     if rec["failed"]:

@@ -46,7 +46,11 @@ def test_runtime_import_closure_is_clean():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "babble_tpu_torch.ops.hopper_kernels" in res["modules"]
     assert "babble_tpu_torch.hashgraph.torch_graph" in res["modules"]
-    for name in ("node.node", "node.core", "net.inmem_transport", "service.ingress"):
+    for name in ("node.node", "node.core", "net.inmem_transport", "service.ingress",
+                 "telemetry.promtext", "telemetry.dagdump", "telemetry.tracemerge",
+                 "hashgraph.file_store", "net.tcp_transport", "net.faulty_transport",
+                 "proxy.jsonrpc", "proxy.socket_app_proxy", "proxy.socket_babble_proxy",
+                 "proxy.file_app_proxy", "service.service", "dummy", "cli"):
         assert f"babble_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 

@@ -26,7 +26,7 @@ import pytest
 
 from babble_tpu_torch import crypto
 from babble_tpu_torch.hashgraph import InmemStore, TorchHashgraph
-from babble_tpu_torch.net import InmemTransport, Peer
+from babble_tpu_torch.net import InmemTransport, Peer, TCPTransport
 from babble_tpu_torch.net.inmem_transport import connect_all
 from babble_tpu_torch.node import Node
 from babble_tpu_torch.node.config import Config
@@ -53,15 +53,22 @@ def failed_passes():
     logger.removeHandler(handler)
 
 
-def make_nodes(engines):
-    """tests/test_node.make_nodes over the inmem transport: node i on
-    engines[i]; torch nodes run consensus on the worker every 0.05 s."""
+def make_nodes(engines, transport="inmem", store=None, bootstrap=False):
+    """tests/test_node.make_nodes: node i on engines[i], over the inmem
+    transport or TCP on free localhost ports; torch nodes run consensus
+    on the worker every 0.05 s. `store(i, participants)` makes node i's
+    store (default an InmemStore); `bootstrap` recovers each node from
+    it."""
     n = len(engines)
+    if transport == "tcp":
+        trans = [TCPTransport("127.0.0.1:0", timeout=2.0) for _ in range(n)]
+    else:
+        trans = [InmemTransport(f"addr{i}", timeout=2.0) for i in range(n)]
+        connect_all(trans)
+    by_addr = {t.local_addr(): t for t in trans}
     keys = [crypto.key_from_seed(5000 + i) for i in range(n)]
-    entries = sorted(((k, Peer(f"addr{i}", "0x" + crypto.pub_key_bytes(k).hex().upper()))
-                      for i, k in enumerate(keys)), key=lambda e: e[1].pub_key_hex)
-    transports = {f"addr{i}": InmemTransport(f"addr{i}", timeout=2.0) for i in range(n)}
-    connect_all(list(transports.values()))
+    entries = sorted(((k, Peer(t.local_addr(), "0x" + crypto.pub_key_bytes(k).hex().upper()))
+                      for k, t in zip(keys, trans)), key=lambda e: e[1].pub_key_hex)
     peers = [p for _, p in entries]
     participants = {p.pub_key_hex: i for i, p in enumerate(peers)}
     nodes = []
@@ -71,9 +78,9 @@ def make_nodes(engines):
         if engines[i] == "torch":
             conf.engine_opts = SMALL_ENGINE
             conf.consensus_interval = 0.05
-        node = Node(conf, i, key, peers, InmemStore(participants, CACHE),
-                    transports[peer.net_addr], recording_proxy())
-        node.init()
+        st = store(i, participants) if store else InmemStore(participants, CACHE)
+        node = Node(conf, i, key, peers, st, by_addr[peer.net_addr], recording_proxy())
+        node.init(bootstrap=bootstrap)
         nodes.append(node)
     return nodes
 
