@@ -368,10 +368,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "off-GIL and can use additional cores")
     rn.add_argument("--device_verify", action="store_true",
                     help="verify sync-batch ECDSA signatures on the "
-                         "device (ops/p256.py vmapped JAX kernel) "
-                         "instead of the host pool; verdicts are "
-                         "bit-identical to the host backends; falls "
-                         "back to the host path when JAX is absent")
+                         "device (the ops/p256.py CUDA kernel, on "
+                         "--engine_device) instead of the host pool; "
+                         "verdicts are bit-identical to the host "
+                         "backends; no fallback: a kernel failure "
+                         "fails the sync")
     rn.add_argument("--no_prewarm", action="store_true",
                     help="skip compiling the engine's cold-start kernel "
                          "ladder at boot (tpu engine)")

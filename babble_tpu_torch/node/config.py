@@ -129,9 +129,12 @@ class Config:
     # process spawn or /dev/shm is unavailable.
     runtime: str = "threads"
     # Device-side signature verification (docs/ingest.md "Crypto
-    # plane"): route each sync batch's ECDSA checks to a device P-256
-    # kernel instead of the host verify pool. The port has no such
-    # kernel yet (ROADMAP B9): True is refused when the Core is built.
+    # plane"): route each sync batch's ECDSA checks to the ops/p256.py
+    # CUDA kernel (csrc/p256.cu) instead of the host verify pool, on
+    # the engine's device (engine_opts["device"]), which the consensus
+    # engine already owns. Verdicts are parity-pinned bit-for-bit
+    # against the host backends. Off by default (the flag doubles as
+    # the kill switch); a kernel failure raises, with no host fallback.
     device_verify: bool = False
     # Consensus pipeline depth for the device engine (requires
     # consensus_interval > 0). 0 = synchronous: each worker wake runs

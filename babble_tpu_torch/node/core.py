@@ -21,8 +21,8 @@ from ..hashgraph.event import Event, WireEvent
 from ..hashgraph.graph import Hashgraph
 from ..hashgraph.store import Store
 from ..telemetry import Registry, SpanRing, get_registry
-from .ingest import (_device_backend, active_backend, resolve_verify_workers,
-                     verify_events)
+from ..devices import resolve_device
+from .ingest import active_backend, resolve_verify_workers, verify_events
 
 
 class Core:
@@ -52,12 +52,13 @@ class Core:
         self._hex_id: str = ""
         self._commit_callback = commit_callback
         # Device-side verify (ROADMAP crypto-plane lever 2,
-        # docs/ingest.md "Crypto plane"): the port has no P-256 verify
-        # kernel yet (ROADMAP B9), so asking for it raises before any
-        # engine state is built, instead of verifying on the host pool
-        # behind the flag.
-        if device_verify:
-            _device_backend()
+        # docs/ingest.md "Crypto plane") runs on the engine's device
+        # (engine_opts["device"], CUDA unless another is named), with
+        # the host engine too; resolved here, so a node that asks for
+        # it with no GPU refuses to start.
+        self._verify_device = (
+            resolve_device((engine_opts or {}).get("device"))
+            if device_verify else None)
         # "host" | "device" | "failed_over" (device engine replaced by
         # the host engine after repeated device-pass failures).
         self.engine_state = "device" if engine == "torch" else "host"
@@ -104,7 +105,11 @@ class Core:
         self.participants = participants
         self.reverse_participants = {pid: pk for pk, pid in participants.items()}
         self.verify_workers = resolve_verify_workers(verify_workers)
-        # Device-side verify: refused above (ROADMAP B9).
+        # Device-side verify: route sync-batch ECDSA to the port's
+        # P-256 kernel (ops/p256.py, csrc/p256.cu) on _verify_device
+        # instead of the host pool. Off by default — the flag is the
+        # kill switch — and a kernel failure raises out of the sync: no
+        # host fallback.
         self.device_verify = bool(device_verify)
         # Execution runtime for the verify plane (docs/runtime.md):
         # per-CORE, not process-global, so one test process can run a
@@ -478,11 +483,13 @@ class Core:
                     with unlocked():
                         verify_events(to_verify, self.verify_workers,
                                       self.device_verify,
-                                      runtime=self.runtime)
+                                      runtime=self.runtime,
+                                      device=self._verify_device)
                 else:
                     verify_events(to_verify, self.verify_workers,
                                   self.device_verify,
-                                  runtime=self.runtime)
+                                  runtime=self.runtime,
+                                  device=self._verify_device)
                 # Per-backend sub-split of the verify wall
                 # (docs/observability.md "Crypto plane"): same interval
                 # stamped under `verify_<backend>` so /debug/phases

@@ -12,10 +12,11 @@ Batch-first (docs/ingest.md "Crypto plane"): each pool chunk makes ONE
 `crypto.verify_batch` call instead of per-event `verify()` calls, so
 the backend can share per-creator EC_KEY precompute across the chunk
 and — on the pure fallback — fuse every signature's modular inversion
-into a single Montgomery batched-inversion pass. `device_verify=True`
-asks for a device P-256 kernel, which the port does not have yet
-(ROADMAP B9): it raises NotImplementedError, and nothing falls back to
-the host pool behind the flag.
+into a single Montgomery batched-inversion pass. With
+`device_verify=True` the whole batch bypasses the pool and runs on the
+`ops/p256.py` CUDA kernel (csrc/p256.cu) instead, on its own stream of
+the device the consensus engine already owns; a kernel failure raises,
+and nothing falls back to the host pool behind the flag.
 
 Worker pool: one process-global ThreadPoolExecutor shared by every
 in-process node (a 16-node localhost testnet must not spawn 16 pools).
@@ -35,6 +36,7 @@ path would have.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -42,6 +44,7 @@ from concurrent.futures import CancelledError, ThreadPoolExecutor
 from typing import Callable, List, Optional
 
 from .. import crypto
+from ..devices import resolve_device
 from ..telemetry import get_registry
 from ..telemetry.queues import QueueInstrument
 
@@ -88,20 +91,20 @@ def _observe_batch(size: int, backend: str) -> None:
     _batch_hist.observe(size)
 
 
-def _device_backend() -> Callable:
-    """The device P-256 kernel's verify_batch. The port has none yet:
-    raises, so a caller that asked for device verify never verifies on
-    the host behind the flag."""
-    raise NotImplementedError(
-        "device_verify: the port has no P-256 verify kernel yet "
-        "(ROADMAP B9); run with device_verify=False")
+def _device_backend(device=None) -> Callable:
+    """The port's device P-256 verify_batch, bound to `device` (CUDA
+    unless the caller names another; raises when there is none)."""
+    from ..ops import p256
+
+    return functools.partial(p256.verify_batch, device=resolve_device(device))
 
 
 def active_backend(device_verify: bool = False) -> str:
     """Name of the backend `verify_events` would use — the label on
     the `babble_verify_backend` gauge and the `/debug/phases`
-    `verify_<backend>` sub-split. Always the host backend: a core with
-    device_verify set is refused at construction."""
+    `verify_<backend>` sub-split."""
+    if device_verify:
+        return "device-p256"
     return crypto.BACKEND
 
 
@@ -192,20 +195,22 @@ def _pool_instrument() -> QueueInstrument:
 
 def verify_events(events: List, workers: int,
                   device_verify: bool = False,
-                  runtime: str = "threads") -> None:
+                  runtime: str = "threads", device=None) -> None:
     """Populate every event's signature memo. Returns nothing:
     outcomes (ok / bad / raising) are delivered through `Event.verify`
     exactly as the serial path delivers them.
 
     Host path: the batch is chunked across the shared pool, one
     `crypto.verify_batch` call per chunk. Device path
-    (`device_verify=True`): the WHOLE batch would go to the device
-    P-256 kernel in one call; the port has none yet, so it raises."""
+    (`device_verify=True`): the WHOLE batch goes to the `ops/p256.py`
+    kernel on `device` in one call — the kernel is internally
+    batch-parallel, so farming chunks to threads would only contend the
+    single device; a kernel failure raises, with no memo written."""
     n = len(events)
     if n == 0:
         return
     if device_verify:
-        verify_batch_events(events, _device_backend(), "device-p256")
+        verify_batch_events(events, _device_backend(device), "device-p256")
         return
     if runtime == "procs" and workers > 1 and n >= _MIN_POOL_BATCH:
         # Off-GIL plane (docs/runtime.md): columns cross to spawned

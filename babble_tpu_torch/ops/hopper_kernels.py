@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper (counterpart of
-babble_tpu/ops/pallas_kernels.py).
+babble_tpu/ops/pallas_kernels.py and of the jitted ladder of
+babble_tpu/ops/p256.py).
 
-One kernel, csrc/strongly_see.cu, replaces the JAX package's one Pallas
-kernel, `pallas_kernels.strongly_see_counts`; the source says what
-bounds it on the H100 and what its tiling does about that. Two entry
-points reach it:
+csrc/strongly_see.cu replaces the JAX package's one Pallas kernel,
+`pallas_kernels.strongly_see_counts`; the source says what bounds it on
+the H100 and what its tiling does about that. Two entry points reach
+it:
 
 - `strongly_see_counts(la_x, fd_w)`: the Pallas kernel's contract,
   counts[x, w] = #{i : la_x[x, i] >= fd_w[w, i]};
@@ -17,19 +18,24 @@ points reach it:
   and the skip correction (ops/frontier.py), which the incremental
   engine (ops/incremental.py) reaches too.
 
-The library is compiled with nvcc for sm_90a into build/kernels/ at the
-repository root on first use (a few seconds: it has a plain C entry
-point and includes no PyTorch header) and loaded with ctypes. The file
-name carries a hash of the source and the flags, so an edited source is
-never served by a stale build.
+csrc/p256.cu is the P-256 dual-window ladder of device ECDSA verify;
+its wrapper, `p256.dual_window`, lives beside its plain version in
+ops/p256.py and launches it through `launch_p256_dual_window`.
+
+Each source is compiled with nvcc for sm_90a into a library of its own
+under build/kernels/ at the repository root on first use (seconds: a
+plain C entry point, no PyTorch header) and loaded with ctypes. The
+file name carries a hash of the source and the flags, so an edited
+source is never served by a stale build.
 
 On a CUDA tensor a wrapper launches the kernel or raises; it never
 reaches the plain version. On a CPU tensor it takes the plain version
 (`strongly_see_counts_ref` = kernels.strongly_see_counts_chunked,
 `strongly_see_gathered_ref` = kernels.strongly_see_gathered_ref),
 which is also what chip_smoke.py holds the kernel against on the card.
-Each wrapper counts its launches: `strongly_see_counts.launches` (an
-int) and `strongly_see_gathered.launches` (a dict by mode).
+Each wrapper counts its launches, under one lock (`count_launch`):
+`strongly_see_counts.launches` (an int), `strongly_see_gathered.launches`
+(a dict by mode) and `p256.dual_window.launches`.
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -50,7 +57,7 @@ from .kernels import strongly_see_counts_chunked as strongly_see_counts_ref
 from .kernels import strongly_see_gathered_ref
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "strongly_see.cu",)
+SOURCES = (_PKG / "csrc" / "strongly_see.cu", _PKG / "csrc" / "p256.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -63,7 +70,15 @@ _COUNTS = 0
 MODES = {"matrix": 1, "tally": 2}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+# Each library's entry point and its argument types.
+_ENTRY = {
+    "strongly_see.cu": ("babble_strongly_see_gathered",
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "p256.cu": ("babble_p256_dual_window",
+                [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]),
+}
 
 
 def _nvcc() -> str:
@@ -77,43 +92,60 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built at first use")
 
 
-def build() -> dict:
-    """Compile the kernel library if this source and these flags have
-    no build yet. Returns {"path", "seconds", "log"}: the library, the
-    nvcc time (0 for an existing build) and nvcc's output, ptxas's
-    register and shared-memory report included. The output is written
-    under a temporary name and renamed, so concurrent builds never
-    load a half-written file."""
+def build(source: Optional[Path] = None) -> dict:
+    """Compile one kernel library (`source`, one of SOURCES) if this
+    source and these flags have no build yet; with no source, every
+    library, one nvcc each, all started together. Returns {"path",
+    "seconds", "log"} for one source (the library, the nvcc time, 0 for
+    an existing build, and nvcc's output, ptxas's register, spill and
+    shared-memory report included), and {source name: that} for all.
+    The output is written under a temporary name and renamed, so
+    concurrent builds never load a half-written file."""
+    if source is None:
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            return dict(zip((s.name for s in SOURCES), pool.map(build, SOURCES)))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    lib_path = BUILD_DIR / f"libbabble_kernels_{h.hexdigest()[:16]}.so"
+    h.update(source.read_bytes())
+    lib_path = BUILD_DIR / f"libbabble_{source.stem}_{h.hexdigest()[:16]}.so"
     if lib_path.exists():
         return {"path": lib_path, "seconds": 0.0, "log": "(already built)"}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib_path)
     return {"path": lib_path, "seconds": seconds,
             "log": (proc.stdout + proc.stderr).strip()}
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load(name: str) -> ctypes.CDLL:
+    """The library built from csrc/<name>, built and loaded once."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()["path"]))
-            fn = lib.babble_strongly_see_gathered
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(_PKG / "csrc" / name)["path"]))
+            entry, argtypes = _ENTRY[name]
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return lib
+
+
+def count_launch(wrapper, key: Optional[str] = None) -> None:
+    """Add one to a wrapper's launch count (`wrapper.launches`, or its
+    entry `key`) under one lock: engines, gossip threads and verify
+    calls launch from several threads at once."""
+    with _count_lock:
+        if key is None:
+            wrapper.launches += 1
+        else:
+            wrapper.launches[key] += 1
 
 
 def _check_operand(name: str, t: torch.Tensor, dim: int = 2) -> None:
@@ -131,7 +163,7 @@ def _launch(x_tab, xs, f_tab, w_tab, wrow, out, m, w, n, sm, mode) -> None:
     if -(-w // _TILE) > _MAX_GRID_Y:
         raise ValueError(f"{w} witness slots; at most {_MAX_GRID_Y * _TILE}")
     gathers = [None if t is None else t.data_ptr() for t in (xs, w_tab, wrow)]
-    lib = _load()
+    lib = _load("strongly_see.cu")
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = lib.babble_strongly_see_gathered(
@@ -165,7 +197,7 @@ def strongly_see_counts(la_x: torch.Tensor, fd_w: torch.Tensor) -> torch.Tensor:
     if m == 0 or w == 0:
         return out
     _launch(la_x, None, fd_w, None, None, out, m, w, n, 0, _COUNTS)
-    strongly_see_counts.launches += 1
+    count_launch(strongly_see_counts)
     return out
 
 
@@ -216,8 +248,25 @@ def strongly_see_gathered(x_tab: torch.Tensor, xs: torch.Tensor, f_tab: torch.Te
     if m == 0 or w == 0:
         return out
     _launch(x_tab, xs, f_tab, w_tab, wrow, out, m, w, n, int(sm), MODES[mode])
-    strongly_see_gathered.launches[mode] += 1
+    count_launch(strongly_see_gathered, mode)
     return out
 
 
 strongly_see_gathered.launches = {mode: 0 for mode in MODES}
+
+
+def launch_p256_dual_window(n1: torch.Tensor, n2: torch.Tensor, qwin: torch.Tensor,
+                            gwin: torch.Tensor, out: torch.Tensor, b: int) -> None:
+    """One launch of csrc/p256.cu on the current stream of out's device:
+    the ladder for b lanes into out [3, b, 16] (X, Y, Z). The caller
+    (p256.dual_window) has checked the operands: int32, contiguous, on
+    one CUDA device, n1/n2 [b, 64], qwin [b, 16, 2, 16], gwin [16, 2,
+    16]. Raises on a CUDA error."""
+    lib = _load("p256.cu")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.babble_p256_dual_window(
+            n1.data_ptr(), n2.data_ptr(), qwin.data_ptr(), gwin.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), b, stream)
+    if err != 0:
+        raise RuntimeError(f"p256 kernel launch failed: CUDA error {err}")

@@ -487,6 +487,48 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     return packed, rounds_all, rr_all
 
 
+def _analyze_cost(args, kw, outputs) -> dict:
+    """The cost of one _consensus_fused call, counted from its shapes
+    (there is no compiler cost model to ask, as XLA's cost_analysis is
+    in the JAX package). With n participants, the pass's windows (rw
+    fame rounds, iw round-received rounds, tw swept frontier rows, bp
+    batch events, rcap relative rounds, cb timestamp lanes) and au
+    undecided lanes:
+
+    - flops: integer operations of the contractions that dominate the
+      pass, 2 n^3 (rw + tw) (a compare and an add per witness pair and
+      participant in fame and the frontier sweep) + 2 iw n au (the
+      round-received see counts) + rcap bp (the batch's round compares)
+      + cb n (3 + ceil(log2 n)) (the timestamp lanes' gathers and
+      median sort);
+    - bytes_accessed: every tensor input read once and every output
+      written once;
+    - output_bytes: the exact bytes of the outputs (the packed buffer,
+      rounds_out and rr_out);
+    - temp_bytes: the largest intermediates the pass builds, 4 rw n^2
+      (fame's per-round strongly-see matrices) + n au (one round-received
+      step's see mask) + 16 cb n (the median's int64 keys, sorted).
+
+    Never raises: it runs on the staging worker."""
+    try:
+        n, rw, iw, tw, bp, rcap, cb = (
+            kw[k] for k in ("n", "rw", "iw", "tw", "bp", "rcap", "cb"))
+        au = int(args[27].shape[0])  # und_ids
+        log_n = max(1, (n - 1).bit_length())
+        out_bytes = sum(t.numel() * t.element_size() for t in outputs)
+        in_bytes = sum(t.numel() * t.element_size() for t in args
+                       if isinstance(t, torch.Tensor))
+        return {"consensus_fused": {
+                    "flops": float(2 * n ** 3 * (rw + tw) + 2 * iw * n * au
+                                   + rcap * bp + cb * n * (3 + log_n)),
+                    "bytes_accessed": float(in_bytes + out_bytes),
+                    "output_bytes": float(out_bytes),
+                    "temp_bytes": float(4 * rw * n * n + n * au + 16 * cb * n)},
+                "shapes": {k: int(v) for k, v in kw.items()}}
+    except Exception as exc:  # noqa: BLE001 - report, don't wedge
+        return {"error": str(exc)}
+
+
 @dataclass
 class RunDelta:
     """What one run() call newly decided — the exact shape of the
@@ -680,6 +722,12 @@ class IncrementalEngine:
         # Host reads of device values by the last collected pass: one
         # per frontier round swept and one per packed pull.
         self.host_syncs = 0
+        # Cost attribution (/debug/profile?cost=1, the
+        # babble_engine_pass_flops/_bytes gauges): request_cost_report()
+        # arms a one-shot capture; the next fused-epilogue dispatch counts
+        # its operations and bytes from the pass's shapes into here.
+        self.cost_report: Optional[dict] = None
+        self._cost_requested = False
 
     # -- device helpers ---------------------------------------------------
 
@@ -1252,8 +1300,10 @@ class IncrementalEngine:
             self.phase_ns[name] = self.phase_ns.get(name, 0) + now - last
             last = now
 
+        fused_kw = dict(n=n, sm=sm, rcap=rcap, bp=pp.bp, rw=pp.rw, iw=pp.iw,
+                        cb=pp.cb, tw=pp.tw_i)
         with self._on_stream():
-            packed, pp.rounds_out, pp.rr_out = _consensus_fused(
+            fused_args = (
                 self._chain_la, self._chain_rb, pp.chain_len_d, pp.la,
                 self._ranks, pp.rb, self._chain_d, self._upload(wt_tab),
                 self._upload(fr_tab), pp.wt_prev, pp.fr_prev, pp.t0,
@@ -1261,9 +1311,9 @@ class IncrementalEngine:
                 pp.e0_b, pp.e, pp.rounds_up, pp.rr_up,
                 self._upload(fam_rel), self._upload(in_list_rel),
                 self._chain_th, self._chain_tl, pp.rx0,
-                self._prev_first_undec, pp.und_up, pp.n_und, pp.t_start,
-                n=n, sm=sm, rcap=rcap, bp=pp.bp, rw=pp.rw, iw=pp.iw,
-                cb=pp.cb, tw=pp.tw_i, mark=mark)
+                self._prev_first_undec, pp.und_up, pp.n_und, pp.t_start)
+            packed, pp.rounds_out, pp.rr_out = _consensus_fused(
+                *fused_args, **fused_kw, mark=mark)
             pp.packed_dev = packed
             if self._stream is None:
                 pp.packed_host, pp.computed, pp.pulled = packed, None, None
@@ -1278,6 +1328,19 @@ class IncrementalEngine:
         self.phase_ns["c_dispatch"] = (
             self.phase_ns.get("c_dispatch", 0)
             + time.perf_counter_ns() - t_stage)
+        if self._cost_requested:
+            # One-shot: an overflow redo of the same pass re-arms only
+            # if the operator asks again.
+            self._cost_requested = False
+            self.cost_report = _analyze_cost(
+                fused_args, fused_kw, (packed, pp.rounds_out, pp.rr_out))
+
+    def request_cost_report(self) -> None:
+        """Arm a one-shot cost capture: the next fused-epilogue dispatch
+        records the operations and bytes of its exact shapes into
+        `self.cost_report` (see _analyze_cost)."""
+        self.cost_report = None
+        self._cost_requested = True
 
     def device_memory_stats(self) -> dict:
         """Device-memory plane: bytes of the engine's resident tensors,
@@ -1536,10 +1599,10 @@ class IncrementalEngine:
 
     def prewarm(self, *, budget_bytes: int = 1 << 28) -> bool:
         """Pay the cold-start costs before live traffic: on CUDA, build
-        the strongly-see kernel library, then run a scratch sibling
-        engine with the same shapes through two passes of a small
-        synthetic gossip DAG (the allocator's first allocations, the
-        kernel's first launches). Returns False (skipped) when the
+        the kernel libraries (B1's, and P-256's for a node that verifies
+        on the device), then run a scratch sibling engine with the same
+        shapes through two passes of a small synthetic gossip DAG (the
+        allocator's first allocations, the kernel's first launches). Returns False (skipped) when the
         scratch carries would exceed `budget_bytes`."""
         n = self.n
         est = 4 * ((self.cap + 1) * n            # la

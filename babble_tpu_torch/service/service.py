@@ -284,10 +284,10 @@ class Service:
                     # replaced), so repeated calls cannot fill /tmp.
                     #
                     # ?cost=1 skips the profiler and returns per-pass
-                    # compiled-cost attribution instead: the device
-                    # engine AOT-lowers its fused consensus kernel at
-                    # the next pass and reports cost_analysis() FLOPs/
-                    # bytes (also exported as babble_engine_pass_flops/
+                    # cost attribution instead: the device engine counts
+                    # the operations and bytes of its fused consensus
+                    # epilogue from the next pass's shapes (also
+                    # exported as babble_engine_pass_flops/
                     # _bytes gauges). 202 while the capture is pending
                     # on an idle node — poll again.
                     try:
@@ -298,14 +298,9 @@ class Service:
                         self._json(400, {"error": "bad seconds"})
                         return
                     if q.get("cost", ["0"])[0] not in ("0", ""):
-                        core = service.node.core
-                        report = core.engine_cost_report(wait_s=secs)
-                        if report is None and core.engine_state == "device":
-                            # The torch engine has no cost capture yet.
-                            self._json(501, {
-                                "error": "cost attribution is not "
-                                         "implemented for the torch engine"})
-                        elif report is None:
+                        report = service.node.core.engine_cost_report(
+                            wait_s=secs)
+                        if report is None:
                             self._json(400, {
                                 "error": "cost attribution needs the "
                                          "device engine (--engine torch)"})

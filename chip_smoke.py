@@ -8,8 +8,9 @@ line is not printed):
 
 1. device   — the card's name, and its name and power limit as
               nvidia-smi reports them;
-2. build    — compile the CUDA kernel library from the repository's
-              sources (nvcc, sm_90a) and print the build time;
+2. build    — compile the CUDA kernel libraries from the repository's
+              sources (one nvcc per source, sm_90a, all started
+              together) and print the build times and ptxas reports;
 3. kernel   — both entry points of the strongly-see kernel against
               their plain PyTorch versions on the card, exact integer
               equality: strongly_see_counts at (M, W, n) = (5,7,4),
@@ -18,9 +19,18 @@ line is not printed):
               the main path's shapes (GATHERED_SHAPES: fame's batch,
               the frontier probe, a north-star level with mixed witness
               rows, a ragged case); kernel and plain times and bounds;
-4. small    — a small DAG through both engines on the card and on the
+4. p256     — the P-256 ladder of device ECDSA verify: the kernel
+              (csrc/p256.cu) against its plain PyTorch version on the
+              card, exactly, at B = 8 (tests/test_crypto.py's corpus and
+              the d = 1 degeneracies) and B = 64; verify_batch's verdicts
+              against the host backend's crypto.verify_batch at B = 1,
+              8, 64, 512, 4,096 and 32,768 (signed_gossip(64, 32,768, 3)
+              with every 97th s corrupted); per size the kernel's time
+              (CUDA events), verify_batch's wall (prelude, kernel,
+              epilogue), the host backend's wall and the kernel's bound;
+5. small    — a small DAG through both engines on the card and on the
               CPU (plain versions): all six outputs identical;
-5. headline — synthetic_dag(64, 50_000, seed=1) through run_pipeline
+6. headline — synthetic_dag(64, 50_000, seed=1) through run_pipeline
               with both engines: outputs identical between engines,
               47,659 decided events, a sha256 over the six outputs
               equal to the digest of the JAX reference package on the
@@ -29,16 +39,16 @@ line is not printed):
               and one skip correction per round, or compute_rounds once
               per level); median of 3 timed runs (pipeline + host
               order);
-6. main_path — the default engine's headline run with every launch
+7. main_path — the default engine's headline run with every launch
               count set to 0 just before and read just after, by mode
               and by site;
-7. profile  — one headline run of the main path under torch.profiler:
+8. profile  — one headline run of the main path under torch.profiler:
               the card's busy share of the wall time, device time by
               kernel;
-8. northstar — synthetic_dag(1024, 100_000, seed=2) once with the
+9. northstar — synthetic_dag(1024, 100_000, seed=2) once with the
               default engine: time, decided count (44,770), launches
               by site;
-9. sustained — the live node's incremental engine (IncrementalEngine,
+10. sustained — the live node's incremental engine (IncrementalEngine,
               n = 64, capacity 65,536, block 512, k_capacity 1,024) fed
               synthetic_dag(64, 50_000, seed=3) in batches of 4,096
               with pipelined append / collect / dispatch, as bench.py's
@@ -47,17 +57,17 @@ line is not printed):
               pass; its final state equal to the one-shot run_pipeline
               on the card and to the JAX reference package's digest
               (GOLDEN_SUSTAINED_*);
-10. sustained_profile — the same engine with run() per batch: phase
+11. sustained_profile — the same engine with run() per batch: phase
               shares of passes 3-6 with synchronised timers; pass 7
               under torch.cuda.set_sync_debug_mode("warn"), which must
               flag exactly one host read per frontier round; pass 8 (a
               steady pass) under torch.profiler: the card's busy share,
               device time by kernel, host waits;
-11. northstar_incremental — the engine at n = 1024 (capacity 131,072,
+12. northstar_incremental — the engine at n = 1024 (capacity 131,072,
               block 512, k_capacity 512), run() per batch of 4,096 over
               the north-star DAG: time, peak memory, launches by site,
               44,770 decided and the state equal to the one-shot run;
-12. hashgraph — signed events through the port's host surface:
+13. hashgraph — signed events through the port's host surface:
               signed_gossip (n = 64, 32,768 events, deterministic
               RFC 6979 signatures, port modules only) fed to a
               TorchHashgraph (the sustained engine settings) by
@@ -69,10 +79,11 @@ line is not printed):
               the card, launches by site, insert / Store-mirror / pass
               seconds, and a frame reset replayed on a fresh graph equal
               to the host Hashgraph's replay;
-13. node    — the node seam: (a) tests/test_failover.py's Core script
+14. node    — the node seam: (a) tests/test_failover.py's Core script
               (600 scripted syncs, seed 13, consensus every 5) with one
-              Core(engine="torch") on the card among three host Cores,
-              held against a host-engine twin Core fed the same events at
+              Core(engine="torch", device_verify=True) on the card among
+              three host Cores (its syncs verified by the P-256 kernel,
+              launched at least once), held against a host-engine twin Core fed the same events at
               the same cadence (consensus events, block bytes, head/seq,
               rounds, round-received); (b) bench.py's node stage on the
               port: a live 4-node net of Nodes on InmemTransport and
@@ -84,15 +95,19 @@ line is not printed):
               bytes across nodes and against one node's events replayed
               into a host Hashgraph, every committed block delivered or
               still queued at shutdown, no fast-forward, no failover and
-              no failed pass;
-14. cli     — the port's CLI, one node per process: 4 processes of
+              no failed pass; the engine's cost report
+              (Core.engine_cost_report, /debug/profile?cost=1) with the
+              JAX engine's key set;
+15. cli     — the port's CLI, one node per process: 4 processes of
               `python -m babble_tpu_torch.cli run --engine torch` on the
               card (TCP gossip on localhost, --store file, heartbeat
               10 ms, consensus interval 250 ms), one DummyClient each, a
               transaction every 2 ms; warm-up, one 15 s window with a 2 s
-              /debug/profile capture of node 0 (its torch.profiler trace
-              gives the strongly-see kernel's launches in a CLI
-              process), SIGTERM, a restart of all four on their
+              /debug/profile capture of node 0, which runs
+              --device_verify (its torch.profiler trace gives the
+              strongly-see and P-256 kernels' launches in a CLI process;
+              /debug/phases its verify share beside a host-verify
+              node's), SIGTERM, a restart of all four on their
               databases (bootstrap), 5 more transactions: boot seconds,
               committed consensus events/s and commit latency from each
               node's /Stats and /metrics, each process's median pass
@@ -100,7 +115,7 @@ line is not printed):
               exit codes, rounds after the restart, no failover and no
               failed pass in any process's stderr.
 
-Each path that launches the kernel (the one-shot main path, sustained,
+Each path that launches a kernel (the one-shot main path, sustained,
 northstar_incremental, hashgraph, both parts of node) runs with every
 launch count set to 0 just before it and read just after, and fails when
 the kernel was not launched at each of its sites. Lines before the last: a {"kernels": [...]} line (launches on
@@ -201,10 +216,19 @@ CLI_BOOT_S = 180.0
 CLI_STOP_S = 30.0
 CLI_MORE_TXS = 5
 CLI_MORE_S = 60.0
+# The CLI nodes that run --device_verify (node 0 is also the profiled one).
+CLI_DEVICE_VERIFY = (0,)
 # The port's log line for a failed consensus pass (node/node.py), which
 # FailedPassRecords counts in-process and phase cli counts in each CLI
 # process's stderr.
 FAILED_PASS = "consensus pass failed"
+# The p256 phase: verdicts at these batch sizes, the largest the
+# signatures of signed_gossip(*P256_SIGNED) with every P256_CORRUPT_EVERY-th
+# s corrupted; the kernel against its plain version at P256_PLAIN sizes.
+P256_SIZES = (1, 8, 64, 512, 4096, 32_768)
+P256_SIGNED = (64, 32_768, 3)
+P256_CORRUPT_EVERY = 97
+P256_PLAIN = (8, 64)
 ENGINE_BATCH = 4096
 PROFILED_BATCH = 8  # the steady pass sustained_profile traces
 KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
@@ -243,7 +267,8 @@ ENGINE_SITES = ("fame", "frontier_probe", "skip_correction")
 # int32 lanes per SM per clock (half the 128 fp32 lanes behind the
 # 67 TFLOP/s fp32 peak) x 132 SMs x 1.98 GHz. Bytes: both inputs read
 # once, the output written once, at 3.35 TB/s.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAX = 2**31 - 1
 
@@ -308,10 +333,18 @@ def gathered_inputs(m, w, n, r, wrow_kind, seed=3):
 
 def reset_launches():
     from babble_tpu_torch.ops import hopper_kernels as hk
+    from babble_tpu_torch.ops import p256
 
     hk.strongly_see_counts.launches = 0
     for mode in hk.strongly_see_gathered.launches:
         hk.strongly_see_gathered.launches[mode] = 0
+    p256.dual_window.launches = 0
+
+
+def p256_launches() -> int:
+    from babble_tpu_torch.ops import p256
+
+    return p256.dual_window.launches
 
 
 def read_launches() -> dict:
@@ -421,11 +454,14 @@ def phase_build(rec):
     from babble_tpu_torch.ops import hopper_kernels
 
     t0 = time.perf_counter()
-    info = hopper_kernels.build()
-    rec["build"] = {"seconds": time.perf_counter() - t0, "library": str(info["path"]),
-                    "nvcc_seconds": info["seconds"], "ptxas": info["log"]}
-    print(f"build: {rec['build']['seconds']:.2f} s -> {info['path']}")
-    print(info["log"])
+    infos = hopper_kernels.build()
+    rec["build"] = {"seconds": time.perf_counter() - t0, "libraries": {
+        name: {"library": str(info["path"]), "nvcc_seconds": info["seconds"],
+               "ptxas": info["log"]} for name, info in infos.items()}}
+    print(f"build: {rec['build']['seconds']:.2f} s")
+    for name, info in infos.items():
+        print(f"build {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
+        print(info["log"])
 
 
 def phase_kernel(rec, device="cuda"):
@@ -486,6 +522,198 @@ def phase_kernel(rec, device="cuda"):
             if err != 0:
                 raise AssertionError(f"gathered kernel != plain version at {name} {mode}")
     rec["gathered_shapes"] = rows
+
+
+def p256_corpus():
+    """tests/test_crypto.py's verify corpus with the port's crypto and
+    the deterministic signer: valid signatures from repeated creators, a
+    corrupted s, a high-s encoding, r >= N and r = 0 range rejections, a
+    malformed creator point (verdict None). Returns (pubs, digests,
+    sigs, expected)."""
+    from babble_tpu_torch import crypto
+    from babble_tpu_torch.crypto import _fallback as fb
+
+    keys = [fb.key_from_seed(s) for s in (11, 12, 13)]
+    pubs_b = [fb.pub_key_bytes(k) for k in keys]
+    pubs, digests, sigs, expected = [], [], [], []
+    for i in range(6):
+        d = crypto.sha256(b"batch-%d" % i)
+        r, s = fb.sign(keys[i % 3], d)
+        ok = True
+        if i == 2:
+            s = (s + 1) % fb.N or 1
+            ok = False
+        if i == 4:
+            s = fb.N - s
+        pubs.append(pubs_b[i % 3])
+        digests.append(d)
+        sigs.append((r, s))
+        expected.append(ok)
+    d = crypto.sha256(b"range")
+    r, s = fb.sign(keys[0], d)
+    pubs += [pubs_b[0], pubs_b[0]]
+    digests += [d, d]
+    sigs += [(fb.N + 5, s), (0, s)]
+    expected += [False, False]
+    pubs.append(b"\x04" + b"\x00" * 64)
+    digests.append(d)
+    sigs.append((r, s))
+    expected.append(None)
+    return pubs, digests, sigs, expected
+
+
+def p256_degeneracies():
+    """d = 1 (Q = G): r = (N - z) mod N lands the Shamir sum on the point
+    at infinity, r = z mod N forces u1 == u2 through the add's doubling."""
+    from babble_tpu_torch import crypto
+    from babble_tpu_torch.crypto import _fallback as fb
+
+    k1 = fb.key_from_seed(0)
+    pub = fb.pub_key_bytes(k1)
+    d = crypto.sha256(b"degenerate")
+    z = int.from_bytes(d, "big") % fb.N
+    return [pub, pub], [d, d], [((fb.N - z) % fb.N or 1, 1), (z or 1, 1)]
+
+
+def p256_lanes(pubs, digests, sigs):
+    """(n1, n2, qwin) numpy ladder inputs of in-range signatures, made
+    by the port's host prelude (ops/p256.py)."""
+    from babble_tpu_torch.crypto import _fallback as fb
+    from babble_tpu_torch.ops import p256
+
+    ws = fb._batch_inv_n([s for _, s in sigs])
+    u1 = [int.from_bytes(d, "big") % p256.N * w % p256.N for d, w in zip(digests, ws)]
+    u2 = [r * w % p256.N for (r, _), w in zip(sigs, ws)]
+    return (p256._nibbles_of(u1), p256._nibbles_of(u2),
+            np.stack([p256._q_window_limbs(pub) for pub in pubs]))
+
+
+def p256_bound_ms(n1, n2, qwin):
+    """Least time for the ladder on these inputs. Operations: per lane
+    256 doublings of 8 field products and 12 per mixed add, one add per
+    nonzero digit but the first (it meets the identity and multiplies
+    nothing); a field product is 64 32x32->64-bit multiplies, each 2
+    int32 operations (low and high word) at INT32_OPS_PER_S; the
+    reduction's adds are not counted. Bytes: the inputs and the base
+    table read once, X, Y and Z written once."""
+    b = n1.shape[0]
+    adds = int((n1 != 0).sum() + (n2 != 0).sum()) - b
+    ops_s = (b * 256 * 8 + adds * 12) * 64 * 2 / INT32_OPS_PER_S
+    bytes_s = (n1.nbytes + n2.nbytes + qwin.nbytes + 16 * 2 * 16 * 4
+               + 3 * b * 16 * 4) / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def p256_lane_ms(n1, n2):
+    """The serial chain of the slowest lane: its int32 operations (as in
+    p256_bound_ms) at one per clock (1.98 GHz), the least time one
+    thread needs, however many SMs the batch leaves idle."""
+    adds = (n1 != 0).sum(1) + (n2 != 0).sum(1) - 1
+    return float((256 * 8 + adds.max() * 12) * 64 * 2 / SM_CLOCK_HZ * 1e3)
+
+
+def p256_signed_batch():
+    """(pubs, digests, sigs) of signed_gossip(*P256_SIGNED)'s events,
+    every P256_CORRUPT_EVERY-th s corrupted."""
+    from babble_tpu_torch.crypto import _fallback as fb
+
+    events, _, signer = signed_gossip(*P256_SIGNED)
+    pubs = [ev.body.creator for ev in events]
+    digests = [ev.body.hash() for ev in events]
+    sigs = [(int(ev.r), int(ev.s) if (i + 1) % P256_CORRUPT_EVERY
+             else (int(ev.s) + 1) % fb.N or 1) for i, ev in enumerate(events)]
+    return pubs, digests, sigs, signer
+
+
+def phase_p256(rec, device="cuda"):
+    """The P-256 ladder (p256.dual_window, csrc/p256.cu): against its
+    plain version on the card at P256_PLAIN sizes, exact; verify_batch's
+    verdicts against the host backend at P256_SIZES, with times."""
+    import torch
+
+    from babble_tpu_torch import crypto
+    from babble_tpu_torch.ops import p256
+
+    res = rec["p256"] = {"host_backend": crypto.BACKEND}
+    t_gen = time.perf_counter()
+    s_pubs, s_digests, s_sigs, signer = p256_signed_batch()
+    res["signed"] = {"events": len(s_pubs), "signer": signer,
+                     "seconds": time.perf_counter() - t_gen}
+
+    # The kernel against its plain version: the corpus's in-range lanes
+    # and the degeneracies (8 lanes), then 64 signatures of the stream.
+    pubs, digests, sigs, expected = p256_corpus()
+    live = [i for i, v in enumerate(expected) if v is not None and 1 <= sigs[i][0] < p256.N]
+    dp, dd, ds = p256_degeneracies()
+    plain_batches = {8: p256_lanes([pubs[i] for i in live] + dp,
+                                   [digests[i] for i in live] + dd,
+                                   [sigs[i] for i in live] + ds),
+                     64: p256_lanes(s_pubs[:64], s_digests[:64], s_sigs[:64])}
+    rows = []
+    for b in P256_PLAIN:
+        arrs = plain_batches[b]
+        args = [torch.from_numpy(a).to(device) for a in arrs]
+        got = p256.dual_window(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = p256.dual_window_ref(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        ms = cuda_ms(lambda: p256.dual_window(*args), 10)
+        bound, by = p256_bound_ms(*arrs)
+        lane_ms = p256_lane_ms(*arrs[:2])
+        rows.append({"b": b, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "lane_chain_ms": lane_ms})
+        print(f"p256 kernel vs plain B={b}: max_abs_err={err} kernel {ms:.3f} ms plain "
+              f"{plain_ms:.1f} ms (wall, synchronised) bound {bound:.5f} ms ({by}), "
+              f"one lane's chain {lane_ms:.4f} ms")
+        if err != 0:
+            raise AssertionError(f"p256 kernel != plain version at B={b}")
+    res["kernel_vs_plain"] = rows
+
+    # Verdicts against the host backend, with times per size.
+    corpus_dev = p256.verify_batch(pubs, digests, sigs, device=device)
+    degenerate = (p256.verify_batch(dp, dd, ds, device=device), crypto.verify_batch(dp, dd, ds))
+    res["corpus_equal"] = corpus_dev == expected == crypto.verify_batch(pubs, digests, sigs)
+    res["degeneracies_equal"] = degenerate[0] == degenerate[1]
+    print(f"p256 corpus verdicts {corpus_dev} (expected {expected}); degeneracies "
+          f"{degenerate[0]} (host {degenerate[1]})")
+    if not (res["corpus_equal"] and res["degeneracies_equal"]):
+        raise AssertionError("p256 verdicts differ from the host backend on the corpus")
+    sizes = []
+    for b in P256_SIZES:
+        batch = (s_pubs[:b], s_digests[:b], s_sigs[:b])
+        torch.cuda.synchronize()
+        launches0 = p256_launches()
+        t0 = time.perf_counter()
+        dev_v = p256.verify_batch(*batch, device=device)
+        verify_s = time.perf_counter() - t0
+        launches = p256_launches() - launches0
+        t0 = time.perf_counter()
+        host_v = crypto.verify_batch(*batch)
+        host_s = time.perf_counter() - t0
+        arrs = p256_lanes(*batch)
+        args = [torch.from_numpy(a).to(device) for a in arrs]
+        ms = cuda_ms(lambda: p256.dual_window(*args), 3 if b >= 4096 else 10)
+        bound, by = p256_bound_ms(*arrs)
+        row = {"b": b, "equal": dev_v == host_v, "rejected": host_v.count(False),
+               "launches": launches,
+               "kernel_ms": ms, "kernel_us_per_event": ms * 1e3 / b,
+               "verify_ms": verify_s * 1e3, "verify_us_per_event": verify_s * 1e6 / b,
+               "host_ms": host_s * 1e3, "host_us_per_event": host_s * 1e6 / b,
+               "bound_ms": bound, "bound_by": by, "lane_chain_ms": p256_lane_ms(*arrs[:2])}
+        sizes.append(row)
+        print(f"p256 B={b}: verdicts equal {row['equal']} ({row['rejected']} rejected), "
+              f"{launches} launch(es); "
+              f"kernel {ms:.3f} ms ({row['kernel_us_per_event']:.3f} us/event), "
+              f"verify_batch {row['verify_ms']:.2f} ms ({row['verify_us_per_event']:.2f} "
+              f"us/event), host {crypto.BACKEND} {row['host_ms']:.2f} ms "
+              f"({row['host_us_per_event']:.2f} us/event), bound {bound:.5f} ms ({by}), "
+              f"one lane's chain {row['lane_chain_ms']:.4f} ms")
+        if not row["equal"] or row["rejected"] != b // P256_CORRUPT_EVERY or launches != 1:
+            raise AssertionError(f"p256 at B={b}: {row}")
+    res["sizes"] = sizes
 
 
 def phase_small(rec, device="cuda"):
@@ -1207,8 +1435,10 @@ def prefix_equal(a, b) -> bool:
 
 def node_core_script(device):
     """tests/test_failover.py's make_cores + gossip_script on the port:
-    one Core(engine="torch") on the card with the default presize among
-    three host Cores, NODE_SCRIPT's scripted syncs. Its events are then
+    one Core(engine="torch", device_verify=True) on the card with the
+    default presize among three host Cores, NODE_SCRIPT's scripted syncs;
+    every sync into it verifies on the P-256 kernel (no host fallback
+    exists to take a sync). Its events are then
     fed to a host-engine twin Core (same key, same events, a pass where
     the torch core ran one), which must agree in consensus events, block
     bytes, head/seq, rounds and round-received."""
@@ -1224,7 +1454,8 @@ def node_core_script(device):
     cores = [Core(i, keys[i], participants, InmemStore(participants, NODE_CACHE),
                   commit_callback=commits.append if i == 0 else None,
                   engine="torch" if i == 0 else "host",
-                  engine_opts={"device": device} if i == 0 else None)
+                  engine_opts={"device": device} if i == 0 else None,
+                  device_verify=(i == 0))
              for i in range(NODE_N)]
     dev = cores[0]
     for c in cores:
@@ -1252,6 +1483,8 @@ def node_core_script(device):
             run(i)
         script_s = time.perf_counter() - t0
     launches = read_launches()
+    verify_launches = p256_launches()
+    verify_phase = dev.phase_ns.get("verify_device-p256", [0, 0, 0])
     dev.hg.close()
 
     events = stored_events(dev.hg.store, participants)
@@ -1276,6 +1509,9 @@ def node_core_script(device):
                       for ev in events),
         "host_cores_prefix": all(prefix_equal(order, c.get_consensus_events())
                                  for c in cores[1:]),
+        "p256_launched": verify_launches > 0,
+        "verify_on_device": verify_phase[2] > 0 and not any(
+            ph.startswith("verify_") and ph != "verify_device-p256" for ph in dev.phase_ns),
     }
     res = {"steps": steps, "seed": seed, "consensus_every": every,
            "engine": {k: getattr(dev.hg.engine, a) for k, a in
@@ -1283,12 +1519,16 @@ def node_core_script(device):
            "events": len(events), "decided": len(order), "blocks": len(commits),
            "passes": len(marks), "last_consensus_round": dev.get_last_consensus_round_index(),
            "script_s": script_s, "launches": launches, "launches_by_site": sites,
+           "p256_launches": verify_launches,
+           "verify_device_p256": {"calls": verify_phase[2], "total_ms": verify_phase[1] / 1e6},
            "checks": checks}
     print(f"node core script: {steps} syncs (seed {seed}, consensus every {every}), torch "
           f"core on {device} with {res['engine']}: {len(events)} events, {len(order)} "
           f"decided, {len(commits)} blocks, last consensus round "
           f"{res['last_consensus_round']}, {len(marks)} passes, {script_s:.2f} s; "
-          f"launches {launches} by site {sites}; against the host twin: {checks}")
+          f"launches {launches} by site {sites}; P-256 launches {verify_launches}, "
+          f"verify_device-p256 {verify_phase[2]} calls {verify_phase[1] / 1e6:.1f} ms; "
+          f"against the host twin: {checks}")
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"node core script: the torch core differs in {bad}")
@@ -1402,6 +1642,19 @@ def build_node_net(device):
     return nodes, participants
 
 
+COST_KEYS = {"flops", "bytes_accessed", "output_bytes", "temp_bytes"}
+COST_SHAPES = {"n", "sm", "rcap", "bp", "rw", "iw", "cb", "tw"}
+
+
+def cost_report_ok(report) -> bool:
+    """An engine cost report has the JAX engine's key set, positive
+    counts, and the node's width."""
+    return (isinstance(report, dict) and set(report) == {"consensus_fused", "shapes"}
+            and set(report["consensus_fused"]) == COST_KEYS
+            and all(v > 0 for v in report["consensus_fused"].values())
+            and set(report["shapes"]) == COST_SHAPES and report["shapes"]["n"] == NODE_N)
+
+
 class FailedPassRecords(logging.Handler):
     """Counts the port's "consensus pass failed" log records."""
 
@@ -1487,6 +1740,9 @@ def phase_node(rec, device="cuda"):
                 p0 = time.monotonic()
                 time.sleep(NODE_PROFILE_S)
                 prof_wall = time.monotonic() - p0
+            # /debug/profile?cost=1's source: arms the engine's one-shot
+            # cost capture and waits for the next pass to record it.
+            cost = nodes[0].core.engine_cost_report(wait_s=5.0)
             time.sleep(max(0.0, w0 + NODE_WINDOW_S - time.monotonic()))
             c1, w1 = committed(), time.monotonic()
             lat = pas = None
@@ -1570,6 +1826,7 @@ def phase_node(rec, device="cuda"):
         "device_replay": alone_blocks == blocks[ref],
         "device_engine": all(st == ("device", 0) for st in states),
         "no_failed_pass": failed.count == 0,
+        "cost_report": cost_report_ok(cost),
     }
     rate = (c1 - c0) / (w1 - w0)
     prof_sum = profile_summary(prof, prof_wall)
@@ -1590,7 +1847,7 @@ def phase_node(rec, device="cuda"):
         "pass_ms_per_event": (pas.quantile(0.5) * 1e3 * pas.count / ((c1 - c0) * NODE_N)
                               if pas.count and c1 > c0 else None),
         "engine_phase_ms": phases, "launches": launches, "launches_by_site": sites,
-        "engine_device_bytes": engine_bytes, "peak_mem_bytes": peak,
+        "engine_device_bytes": engine_bytes, "peak_mem_bytes": peak, "cost_report": cost,
         "profile": prof_sum, "submitted": len(submitted),
         "decided": [len(o) for o in orders], "blocks": [len(b) for b in blocks],
         "delivery": [c for _, c in delivery], "routines_running": running,
@@ -1611,6 +1868,7 @@ def phase_node(rec, device="cuda"):
           f"pass, {res['pass_ms_per_event']} ms per event)")
     print("node net engine phases (ms, all nodes, unsynchronised): " + json.dumps(
         {k: round(v, 1) for k, v in phases.items()}))
+    print(f"node net: node 0's engine cost report {json.dumps(cost)}")
     print(f"node net launches {launches} by site {sites}; engine device_bytes "
           f"{engine_bytes}; peak device memory {peak / 2**20:.1f} MiB; card busy "
           f"{prof_sum.get('device_busy_share')} of a {prof_wall:.1f} s profiled slice")
@@ -1794,7 +2052,8 @@ class CliNet:
                  "--consensus_interval", str(CLI_INTERVAL_MS),
                  "--node_addr", f"127.0.0.1:{node}", "--proxy_addr", f"127.0.0.1:{proxy}",
                  "--client_addr", f"127.0.0.1:{client}",
-                 "--service_addr", f"127.0.0.1:{service}", "--log_level", "warning"],
+                 "--service_addr", f"127.0.0.1:{service}", "--log_level", "warning",
+                 *(["--device_verify"] if i in CLI_DEVICE_VERIFY else [])],
                 stdout=subprocess.DEVNULL, stderr=log, env=cli_env(), cwd=ROOT))
         if not self.clients:
             from babble_tpu_torch.dummy import DummyClient
@@ -1893,19 +2152,37 @@ class CliNet:
             log.close()
 
 
+def verify_phase_share(phases) -> dict:
+    """A node's verify_<backend> phase from its /debug/phases: the
+    backend, its calls and its total time as a share of the sync
+    phase's (verify runs inside sync)."""
+    ph = phases.get("phases", {})
+    name = next((k for k in ph if k.startswith("verify_")), None)
+    ent = ph.get(name, {})
+    sync_ns = ph.get("sync", {}).get("total_ns", 0)
+    return {"backend": name[len("verify_"):] if name else None, "calls": ent.get("calls", 0),
+            "total_ms": ent.get("total_ns", 0) / 1e6,
+            "share_of_sync": ent.get("total_ns", 0) / sync_ns if sync_ns else None}
+
+
 def profile_trace_summary(path, seconds) -> dict:
     """Kernel launches in a /debug/profile Chrome trace: all kernels,
-    the strongly-see kernel's launches and device time per launch, and
-    the card's busy share (union of kernel intervals) of the capture."""
+    the strongly-see and P-256 kernels' launches and device time per
+    launch, and the card's busy share (union of kernel intervals) of the
+    capture."""
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     kern = [e for e in events if e.get("cat") == "kernel"]
     ss = [e for e in kern if "strongly_see_kernel" in e.get("name", "")]
+    pv = [e for e in kern if "p256_dual_window_kernel" in e.get("name", "")]
     busy_us = union_us((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in kern)
     return {"seconds": seconds, "kernel_launches": len(kern),
             "strongly_see_launches": len(ss),
             "strongly_see_us_per_launch": (sum(float(e.get("dur", 0)) for e in ss) / len(ss)
                                            if ss else None),
+            "p256_launches": len(pv),
+            "p256_us_per_launch": (sum(float(e.get("dur", 0)) for e in pv) / len(pv)
+                                   if pv else None),
             "device_busy_share": busy_us * 1e-6 / seconds if kern else "not measured",
             "trace_bytes": os.path.getsize(path)}
 
@@ -1928,7 +2205,10 @@ def phase_cli(rec, device="cuda"):
     block delivered again carries the same transactions; every node
     on the device engine with no failover; no failed pass in any
     process's stderr; after the restart every node's round is at least
-    its round before the stop; the capture holds strongly-see launches."""
+    its round before the stop; the capture holds strongly-see launches
+    and, node 0 running --device_verify (CLI_DEVICE_VERIFY), P-256
+    launches; /debug/phases shows each node's syncs verified on the
+    backend it asked for."""
     import tempfile
 
     from babble_tpu_torch.proxy.jsonrpc import JSONRPCError
@@ -1984,6 +2264,8 @@ def phase_cli(rec, device="cuda"):
         pass1 = net.metrics("babble_engine_pass_seconds")
         capacity = [json.loads(http_get(a, "/debug/capacity")).get("engine", {})
                     for a in net.service]
+        verify_share = [verify_phase_share(json.loads(http_get(a, "/debug/phases")))
+                        for a in net.service]
         profiler.join(timeout=300)
         res["profile"] = profile_trace_summary(os.path.join(prof["trace_dir"], "trace.json"),
                                                prof["seconds"])
@@ -2032,6 +2314,9 @@ def phase_cli(rec, device="cuda"):
             "redelivered_same": all(c.state.conflicts == 0 for c in net.clients),
             "delivered": cli_delivered(lost, after_boot),
             "profile_strongly_see": res["profile"]["strongly_see_launches"] > 0,
+            "profile_p256": res["profile"]["p256_launches"] > 0,
+            "verify_on_device": all((v["backend"] == "device-p256") == (i in CLI_DEVICE_VERIFY)
+                                    and v["calls"] > 0 for i, v in enumerate(verify_share)),
             "final_stop_0": final_rcs == [0] * CLI_N,
         }
     except BaseException:
@@ -2058,6 +2343,7 @@ def phase_cli(rec, device="cuda"):
                                       if p.count and r else None
                                       for r, p in zip(rates, passes)],
         "peak_device_bytes_by_node": [c.get("hbm_peak_bytes") for c in capacity],
+        "verify_share_by_node": verify_share,
         "engine_device_bytes_by_node": [c.get("device_bytes") for c in capacity],
         "last_consensus_round": {"window_end": [last_round(s) for s in s1],
                                  "before_stop": before, "after_restart": after_boot,
@@ -2087,6 +2373,8 @@ def phase_cli(rec, device="cuda"):
           f"process: 4.25-20 s; one TorchHashgraph alone: 0.08-0.48 s); peak device memory "
           f"by process {res['peak_device_bytes_by_node']} bytes; profile of node 0: "
           f"{res['profile']}")
+    print(f"cli net: verify phase by node (backend, calls, share of the sync phase) "
+          + json.dumps(verify_share))
     print(f"cli net: rounds {res['last_consensus_round']}, stop exit codes {stop_rcs} in "
           f"{stop_s} s, final {final_rcs} in {final_s} s, failed-pass lines "
           f"{failed}, commit-failed lines {commit_failed}, divergence-sentinel lines "
@@ -2267,7 +2555,11 @@ def kernels_line(rec) -> dict:
     phase node (b); `launches_by_path` gives every path's. The CLI
     path's kernel runs in its node processes, where this process's
     counts cannot see it: its launches are those a torch.profiler
-    capture of one node process recorded (phase cli)."""
+    capture of one node process recorded (phase cli). The P-256 ladder's
+    entry is timed at B = 64 (a large sync batch) and counts its
+    launches on phase node (a), the device-verify Core's script; its
+    yardstick is the host backend it replaces (`host_ms`): no PyTorch
+    call computes an EC scalar multiplication."""
     main_path = rec.get("main_path_launches", {})
     engine_path = rec.get("node") or {}
     by_mode = engine_path.get("launches", {})
@@ -2308,6 +2600,27 @@ def kernels_line(rec) -> dict:
             "ms": main.get("ms"), "plain_ms": main.get("plain_ms"),
             "bound_ms": main.get("bound_ms"), "bound_by": main.get("bound_by"),
             "library_ms": None, **extra, "by_shape": rows})
+    p = rec.get("p256") or {}
+    main = next((r for r in p.get("sizes", []) if r["b"] == 64), {})
+    plain = next((r for r in p.get("kernel_vs_plain", []) if r["b"] == 64), {})
+    core_script = rec.get("node_core_script") or {}
+    entries.append({
+        "name": "p256_dual_window", "route": "cuda",
+        "source": "babble_tpu_torch/csrc/p256.cu",
+        "replaces": "babble_tpu/ops/p256.py:136",
+        "launches": core_script.get("p256_launches", 0),
+        "max_abs_err": max((r["max_abs_err"] for r in p.get("kernel_vs_plain", [])),
+                           default=None),
+        "ms": main.get("kernel_ms"), "plain_ms": plain.get("plain_ms"),
+        "bound_ms": main.get("bound_ms"), "bound_by": main.get("bound_by"),
+        "library_ms": None, "host_ms": main.get("host_ms"),
+        "host_backend": p.get("host_backend"), "shape": "B = 64 signatures",
+        "launches_on": "node_core_script (phase node (a), Core(device_verify=True))",
+        "launches_by_path": {"node_core_script": core_script.get("p256_launches"),
+                             "cli": {"profiled_launches": cli_profile.get("p256_launches"),
+                                     "of": "node 0 of the CLI testnet (--device_verify), "
+                                           "/debug/profile (torch.profiler)"}},
+        "kernel_vs_plain": p.get("kernel_vs_plain"), "by_size": p.get("sizes")})
     return {"kernels": entries}
 
 
@@ -2339,7 +2652,7 @@ def main() -> int:
     rec = {"device": kind, "nvidia_smi": smi_line, "host": host,
            "torch": torch.__version__, "cuda": torch.version.cuda, "failed": []}
 
-    phases = [("build", phase_build), ("kernel", phase_kernel),
+    phases = [("build", phase_build), ("kernel", phase_kernel), ("p256", phase_p256),
               ("small", phase_small), ("headline", phase_headline),
               ("main_path", phase_main_path_counts), ("profile", phase_profile),
               ("northstar", phase_northstar), ("sustained", phase_sustained),
@@ -2365,7 +2678,8 @@ def main() -> int:
         rec["failed"].append("nvidia-smi")
     print(json.dumps(kernels_line(rec)))
     print(json.dumps({"results": {k: rec.get(k) for k in
-                                  ("host", "build", "headline", "main_path_launches",
+                                  ("host", "build", "p256", "headline",
+                                   "main_path_launches",
                                    "profile", "northstar", "sustained",
                                    "sustained_profile", "northstar_incremental",
                                    "hashgraph", "node", "cli", "phase_s", "total_s")}},

@@ -1,7 +1,7 @@
 """The port's CLI (python -m babble_tpu_torch.cli): tests/test_cli.py's
-version, keygen and localhost testnet on the port, and the CLI's
-refusals: --engine tpu, --device_verify (no P-256 kernel yet), and run
-with no GPU and no --engine_device.
+version, keygen and localhost testnet on the port, the CLI's refusals
+(--engine tpu, and run with no GPU and no --engine_device), and a node
+run with --device_verify on --engine_device cpu.
 
 The testnet: 3 processes of `run --engine torch --engine_device cpu`
 on free localhost ports, TCP gossip, socket app proxies with one
@@ -89,8 +89,7 @@ def test_keygen(tmp_path):
 
 @pytest.mark.parametrize("flags,message", [
     (["--engine", "tpu"], "engine 'tpu' is the JAX package's device engine"),
-    (["--device_verify"], "the port has no P-256 verify kernel yet"),
-], ids=["engine_tpu", "device_verify"])
+], ids=["engine_tpu"])
 def test_run_refuses(flags, message, tmp_path):
     """Core's refusals reach the user as an error and a non-zero exit."""
     datadirs, addrs = make_datadirs(tmp_path, 1)
@@ -109,6 +108,35 @@ def test_run_without_a_gpu_exits(tmp_path):
                   "--no_client", "--service_addr", f"127.0.0.1:{addrs[0][3]}")
     assert out.returncode != 0
     assert "runs on a CUDA device and none is available" in out.stderr
+
+
+def test_run_device_verify_answers_stats(tmp_path):
+    """run --device_verify --engine_device cpu boots (the P-256 verify
+    on the CPU's plain ladder) and answers /Stats; SIGTERM exits 0."""
+    datadirs, addrs = make_datadirs(tmp_path, 1)
+    node, proxy, client, service = addrs[0]
+    with open(tmp_path / "node0.stderr", "w+") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "babble_tpu_torch.cli", "run", "--datadir", datadirs[0],
+             "--device_verify", "--engine_device", "cpu", "--no_client",
+             "--node_addr", f"127.0.0.1:{node}", "--proxy_addr", f"127.0.0.1:{proxy}",
+             "--client_addr", f"127.0.0.1:{client}", "--service_addr", f"127.0.0.1:{service}",
+             "--heartbeat", "50", "--log_level", "error"],
+            env=cli_env(), stdout=subprocess.DEVNULL, stderr=log)
+        try:
+            up = wait_port(service, time.monotonic() + BOOT_S)
+            assert proc.poll() is None and up, tail(log)
+            with urllib.request.urlopen(f"http://127.0.0.1:{service}/Stats", timeout=5) as r:
+                stats = json.loads(r.read())
+            assert stats["engine_state"] == "device"
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        assert proc.returncode == 0, tail(log)
 
 
 def test_cli_testnet(tmp_path):

@@ -36,25 +36,29 @@ ALLOWED = {
     # cache comments say what the port does; the torch engine is the
     # default and failover to the host engine is opt-in (threshold 0).
     "node/config.py": [(12, 12), (87, 94), (131, 136), (149, 153), (180, 188)],
-    # The engine seam (engine="torch", the default), device_verify
-    # refused (B9), the port's logger name.
-    "node/core.py": [(35, 35), (53, 118), (121, 128), (241, 241)],
-    # No P-256 kernel yet (B9): device verify raises, no host fallback.
-    "node/ingest.py": [(14, 18), (91, 107), (202, 218)],
+    # The engine seam (engine="torch", the default), device_verify on
+    # the engine's device (resolved at construction, passed to each
+    # verify), the port's logger name.
+    "node/core.py": [(35, 35), (53, 118), (121, 128), (241, 241), (500, 500),
+                     (504, 504)],
+    # Device verify on the port's CUDA kernel, on a named device, with
+    # no host fallback.
+    "node/ingest.py": [(17, 18), (91, 105), (197, 197), (204, 218)],
     # The port's package name in usage, prog and help strings and its
     # logger name; no XLA compile cache (the kernels build at first use
     # into build/kernels/); the torch engine is the default, with the
     # 250 ms interval floor; --engine_device (default cuda) and the exit
-    # when Core refuses the engine or finds no device; failover off by
-    # default (threshold 0).
+    # when Core refuses the engine or finds no device; --device_verify's
+    # help names the port's kernel; failover off by default (threshold 0).
     "cli.py": [(8, 8), (62, 62), (72, 81), (110, 110), (144, 145), (179, 179),
-               (221, 221), (261, 261), (326, 328), (337, 337), (454, 454),
-               (457, 457)],
+               (221, 221), (261, 261), (326, 328), (337, 337), (361, 364),
+               (454, 454), (457, 457)],
     # The port's package name in the usage line.
     "dummy.py": [(7, 7)],
     # /debug/profile captures with torch.profiler (docstring, capture);
-    # the port's dagdump; ?cost=1 on the torch engine answers 501 (C2).
-    "service/service.py": [(5, 5), (240, 240), (301, 306), (328, 330)],
+    # the port's dagdump; ?cost=1 counts the pass's cost from its
+    # shapes (no XLA cost model) and names the port's device engine.
+    "service/service.py": [(5, 5), (240, 240), (287, 290), (306, 306), (328, 330)],
     # A fault the reference has (ROADMAP §C, C4): a /Stats, /metrics or
     # /debug/capacity scrape sized the store's caches while other
     # threads wrote them and could raise; the port snapshots the sample.

@@ -399,3 +399,43 @@ def test_memory_stats_prewarm_and_left_out_parts():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tinc.IncrementalEngine(4)
+
+
+def test_cost_report_matches_jax_shapes():
+    """request_cost_report() arms one capture: the next pass records the
+    fused epilogue's cost, with the JAX engine's key set, the same
+    shapes as the JAX engine's report for the same pass, and the output
+    bytes XLA reports for the same three outputs less its output tuple
+    (one 8-byte pointer per output). A redo does not re-arm it."""
+    n = 8
+    dag, _ = synthetic_dag(n, 200, seed=3)
+    j, t = engines(n)
+    feed(j, dag, 0, 100)
+    feed(t, dag, 0, 100)
+    assert delta(t.run()) == delta(j.run())
+    assert t.cost_report is None
+    j.request_cost_report()
+    t.request_cost_report()
+    assert t.cost_report is None and t._cost_requested
+    feed(j, dag, 100, 150)
+    feed(t, dag, 100, 150)
+    assert delta(t.run()) == delta(j.run())
+    jr, tr = j.cost_report, t.cost_report
+    assert set(tr) == set(jr) == {"consensus_fused", "shapes"}
+    assert set(tr["consensus_fused"]) == set(jr["consensus_fused"]) == {
+        "flops", "bytes_accessed", "output_bytes", "temp_bytes"}
+    assert tr["shapes"] == jr["shapes"]
+    assert tr["consensus_fused"]["output_bytes"] == jr["consensus_fused"]["output_bytes"] - 3 * 8
+    for key in ("flops", "bytes_accessed", "temp_bytes"):
+        assert tr["consensus_fused"][key] > 0, key
+    assert tr["consensus_fused"]["bytes_accessed"] > tr["consensus_fused"]["output_bytes"]
+    # One-shot: the next pass leaves the report as it was.
+    feed(t, dag, 150, 200)
+    t.run()
+    assert t.cost_report is tr and not t._cost_requested
+    t.close()
+    j.close()
+
+
+def test_cost_report_never_raises():
+    assert tinc._analyze_cost((), {}, ()) == {"error": "'n'"}

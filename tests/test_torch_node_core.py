@@ -17,8 +17,11 @@ port's host-engine Core and the JAX package's host `Hashgraph` and
 - the Core failover tests of tests/test_failover.py (order and commits
   preserved, idempotent on host) with a real torch engine, and
   tests/test_fastsync.py's Core fast-forward on both engines;
-- what the torch seam refuses: device_verify, no CUDA, engine="tpu",
-  engine_mesh > 1."""
+- device verify (ops/p256.py): the whole sync batch goes to the port's
+  p256.verify_batch in one call, its verdicts land in the memos, a
+  kernel failure raises with no host fallback, and a device-verify
+  torch Core driven by the script equals its host twin;
+- what the torch seam refuses: no CUDA, engine="tpu", engine_mesh > 1."""
 
 from __future__ import annotations
 
@@ -409,23 +412,119 @@ def _bare_core(**kw):
     return Core(0, keys[0], participants, InmemStore(participants, CACHE), **kw)
 
 
-@pytest.mark.parametrize("engine", ["host", "torch"])
-def test_device_verify_raises(engine, monkeypatch):
-    """Refused before any engine is built: on the torch engine the
-    refusal comes first even where no CUDA device is."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotImplementedError, match="B9"):
-        _bare_core(engine=engine, device_verify=True)
-
-
-def test_device_verify_batch_raises():
+def test_device_verify_batch_raises(monkeypatch):
+    """With no CUDA device and none named, device verify raises like
+    every entry point, and never verifies on the host behind the flag."""
     from babble_tpu_torch.node.ingest import active_backend, verify_events
 
     core = _bare_core(engine="host")
     core.init()
-    assert active_backend(True) == crypto.BACKEND
-    with pytest.raises(NotImplementedError, match="B9"):
-        verify_events([core.get_head()], 1, device_verify=True)
+    head = fresh_copy(core.get_head())
+    assert active_backend(True) == "device-p256"
+    assert active_backend(False) == crypto.BACKEND
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        verify_events([head], 1, device_verify=True)
+    assert head._sig_ok is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _bare_core(engine="host", device_verify=True)
+
+
+def _signed_events():
+    """Three events of one creator signed with the deterministic signer,
+    the second one corrupted."""
+    from babble_tpu_torch.crypto import _fallback as fb
+
+    key = fb.key_from_seed(5)
+    pub = fb.pub_key_bytes(key)
+    events = []
+    for i in range(3):
+        ev = Event.new([b"tx-%d" % i], ["p0", "p1"], pub, i)
+        ev.r, ev.s = fb.sign(key, ev.body.hash())
+        events.append(ev)
+    events[1].r = int(events[1].r) + 1
+    return events
+
+
+def test_device_verify_routes_the_whole_batch(monkeypatch):
+    """verify_events(..., device_verify=True) hands the whole batch to
+    the port's p256.verify_batch in one call, on the named device, and
+    memoizes the verdicts the host path would."""
+    from babble_tpu_torch.node.ingest import verify_events
+    from babble_tpu_torch.ops import p256
+
+    calls = []
+    real = p256.verify_batch
+
+    def spying(pubs, digests, sigs, device=None):
+        calls.append((len(pubs), device))
+        return real(pubs, digests, sigs, device=device)
+
+    monkeypatch.setattr(p256, "verify_batch", spying)
+    events = _signed_events()
+    assert [ev._sig_ok for ev in events] == [None] * 3
+    verify_events(events, 4, device_verify=True, device="cpu")
+    assert calls == [(3, torch.device("cpu"))]
+    assert [ev._sig_ok for ev in events] == [True, False, True]
+    host = [fresh_copy(ev) for ev in events]
+    from babble_tpu_torch.node.ingest import verify_batch_events
+
+    verify_batch_events(host)
+    assert [ev._sig_ok for ev in host] == [True, False, True]
+
+
+def test_device_verify_kernel_failure_raises(monkeypatch):
+    """A failing kernel raises out of verify_events; no host path writes
+    a memo behind it."""
+    from babble_tpu_torch.node.ingest import verify_events
+    from babble_tpu_torch.ops import p256
+
+    def failing(*args, **kw):
+        raise RuntimeError("p256 kernel launch failed: CUDA error 700")
+
+    monkeypatch.setattr(p256, "verify_batch", failing)
+    events = _signed_events()
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        verify_events(events, 4, device_verify=True, device="cpu")
+    assert [ev._sig_ok for ev in events] == [None] * 3
+
+
+def test_device_verify_core_matches_host_twin(cores_made):
+    """A torch Core with device_verify on the CPU among host cores,
+    driven by a short gossip script: every sync's verify runs on the
+    plain P-256 ladder (the phase verify_device-p256), and the core
+    equals a host-engine twin fed its events at its cadence."""
+    keys, participants = keyed(4)
+    commits = []
+    cores = [Core(i, keys[i], participants, InmemStore(participants, CACHE),
+                  commit_callback=commits.append if i == 0 else None,
+                  engine="torch" if i == 0 else "host",
+                  engine_opts=SMALL_ENGINE if i == 0 else None,
+                  device_verify=(i == 0))
+             for i in range(4)]
+    cores_made.extend(cores)
+    for c in cores:
+        c.init()
+    dev = cores[0]
+    assert dev.device_verify and dev._verify_device == torch.device("cpu")
+    marks = [[] for _ in cores]
+    gossip_script(cores, 60, 21, consensus_every=3, marks=marks)
+    assert dev.phase_ns["verify_device-p256"][2] > 0
+    assert "verify_" + crypto.BACKEND not in dev.phase_ns
+    assert all("verify_device-p256" not in c.phase_ns for c in cores[1:])
+    order = dev.get_consensus_events()
+    assert order and commits
+    events = stored_events(dev)
+    twin_commits = []
+    twin = Core(dev.id, dev.key, dev.participants, InmemStore(dev.participants, CACHE),
+                commit_callback=twin_commits.append, engine="host")
+    replay(events, marks[0], lambda ev: twin.insert_event(fresh_copy(ev), True),
+           twin.run_consensus)
+    assert twin.get_consensus_events() == order
+    assert [b.marshal() for b in twin_commits] == [b.marshal() for b in commits]
+    assert (twin.head, twin.seq) == (dev.head, dev.seq)
+    for c in cores[1:]:
+        assert prefix_equal(order, c.get_consensus_events())
 
 
 def test_defaults_are_the_torch_engine_on_cuda(monkeypatch, cores_made):

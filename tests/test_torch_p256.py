@@ -1,0 +1,233 @@
+"""The port's device ECDSA verify (babble_tpu_torch/ops/p256.py) against
+the JAX package's ladder (babble_tpu/ops/p256.py) and the host
+backends, on the CPU. Tolerance: exact equality (field elements,
+Jacobian limbs and verdicts are integers).
+
+- the plain field operations against Python big ints, on values that
+  reach every candidate of the final reduction;
+- `dual_window_ref`'s (X, Y, Z) against the JAX kernel's, limb for
+  limb, on one 8-lane batch of tests/test_crypto.py's corpus and the
+  d = 1 degeneracies of tests/test_p256.py (one JAX compile, ~20 s:
+  keep every JAX batch at 8);
+- `verify_batch(..., device="cpu")` against the pure fallback's
+  verdicts on the whole corpus, the degeneracies and a one-lane batch;
+- the wrapper on a CUDA tensor with no GPU raises and never takes the
+  plain version; on a CPU tensor it takes the plain version without a
+  launch.
+
+The corpus (chip_smoke.p256_corpus: tests/test_crypto.py's, rebuilt
+with the port's crypto) is signed with the deterministic signer
+(`_fallback.sign`), so both packages see the same signatures. The CUDA
+kernel itself is held against `dual_window_ref` on the card by
+chip_smoke.py."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from babble_tpu.ops import p256 as jp256
+from babble_tpu_torch import crypto
+from babble_tpu_torch.crypto import _fallback as fb
+from babble_tpu_torch.ops import p256
+from chip_smoke import p256_corpus as corpus
+from chip_smoke import p256_degeneracies as degeneracies
+from chip_smoke import p256_lanes as ladder_inputs
+
+# The tensors are tiny: one intra-op thread keeps these tests from
+# competing for cores with the timing-sensitive live-net tests.
+torch.set_num_threads(1)
+
+P, N = p256.P, p256.N
+CPU = torch.device("cpu")
+
+
+def words(x):
+    return torch.tensor([[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]],
+                        dtype=torch.int64)
+
+
+def value(row):
+    return sum(int(v) << (32 * i) for i, v in enumerate(row.tolist()))
+
+
+# Powers of two and their neighbours below P and above 2^256 - P: the
+# products reach every candidate of the reduction (W + P, W, W - P).
+EDGES = ([0, 1, 2, 3, P - 1, P - 2, P - 3] + [1 << k for k in range(0, 256, 8)]
+         + [P - (1 << k) for k in range(0, 224, 8)]
+         + [(1 << 256) - 1 - P + (1 << k) for k in range(0, 200, 16)])
+
+
+def field_values():
+    rng = np.random.default_rng(7)
+    rand = [int.from_bytes(rng.bytes(32), "big") % P for _ in range(24)]
+    return EDGES + rand
+
+
+def test_field_ops_match_big_ints(monkeypatch):
+    """Every plain field operation on EDGES and random values equals the
+    big-int result mod P, fully reduced; the products take each of the
+    reduction's three candidates."""
+    c = p256._consts(CPU)
+    vals = field_values()
+    a = torch.cat([words(x) for x in vals])
+    picked = set()
+    real = p256._canon
+
+    def spy(cands):
+        _, top = p256._sweep(cands)
+        if cands.shape[0] == 3:
+            picked.update(((top >= 0).sum(0) - 1).tolist())
+        return real(cands)
+
+    monkeypatch.setattr(p256, "_canon", spy)
+    for y in vals:
+        b = words(y).expand_as(a).contiguous()
+        got = {name: fn() for name, fn in (
+            ("mul", lambda: p256._fmul(a, b, c)), ("add", lambda: p256._fadd(a, b, c)),
+            ("sub", lambda: p256._fsub(a, b, c)))}
+        for i, x in enumerate(vals):
+            want = {"mul": x * y % P, "add": (x + y) % P, "sub": (x - y) % P}
+            for name, t in got.items():
+                assert value(t[i]) == want[name], (name, x, y)
+    assert picked == {0, 1, 2}
+    for k in range(1, 9):
+        got = p256._fsmall(a, k, c)
+        assert [value(r) for r in got] == [x * k % P for x in vals], k
+    assert p256._is_zero(a).tolist() == [x == 0 for x in vals]
+
+
+def test_limb_and_nibble_helpers():
+    rng = np.random.default_rng(5)
+    xs = [0, 1, P - 1, N - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(8)]
+    limbs = np.stack([p256._to_limbs(x) for x in xs])
+    assert p256._from_limbs(limbs) == xs
+    assert p256._from_limbs(p256._limbs(p256._words(torch.from_numpy(limbs))).numpy()) == xs
+    nib = p256._nibbles_of(xs)
+    assert nib.shape == (len(xs), 64) and nib.dtype == np.int32
+    for x, row in zip(xs, nib):
+        assert (row == jp256._nibbles_of(x)).all()
+
+
+def test_dual_window_ref_matches_jax_kernel():
+    """One 8-lane batch: the corpus's six in-range lanes and the two
+    degeneracies. The port's prelude equals the JAX package's, and the
+    plain ladder's (X, Y, Z) equal the JAX kernel's limb for limb."""
+    pubs, digests, sigs, _ = corpus()
+    dp, dd, ds = degeneracies()
+    lanes = [i for i in range(len(pubs)) if 1 <= sigs[i][0] < N and pubs[i][1:] != bytes(64)]
+    assert len(lanes) == 6
+    n1, n2, qw = ladder_inputs([pubs[i] for i in lanes] + dp,
+                               [digests[i] for i in lanes] + dd,
+                               [sigs[i] for i in lanes] + ds)
+    for pub, q in zip([pubs[i] for i in lanes] + dp, qw):
+        assert (q == jp256._q_window_limbs(pub)).all()
+    assert (p256._G_WIN_LIMBS == jp256._G_WIN_LIMBS).all()
+    want = [np.asarray(x) for x in jp256._get_kernel()(n1, n2, qw)]
+    got = p256.dual_window_ref(*(torch.from_numpy(a) for a in (n1, n2, qw)))
+    for name, g, w in zip("XYZ", got, want):
+        assert g.dtype == torch.int32 and g.shape == (8, 16), name
+        assert (g.numpy() == w).all(), name
+    # The infinity lane ends with Z = 0; every other lane is a point.
+    z = p256._from_limbs(got[2].numpy())
+    assert z[6] == 0 and all(z[:6]) and z[7] != 0
+
+
+def test_verify_batch_matches_host_backends():
+    """The whole corpus in one batch, the degeneracies, and one-lane
+    batches: verdicts equal the pure fallback's and the active host
+    backend's, None for the malformed creator."""
+    pubs, digests, sigs, expected = corpus()
+    assert fb.verify_batch(pubs, digests, sigs) == expected
+    assert crypto.verify_batch(pubs, digests, sigs) == expected
+    assert p256.verify_batch(pubs, digests, sigs, device="cpu") == expected
+    dp, dd, ds = degeneracies()
+    want = fb.verify_batch(dp, dd, ds)
+    assert want[0] is False
+    assert p256.verify_batch(dp, dd, ds, device="cpu") == want
+    key = fb.key_from_seed(77)
+    pub = fb.pub_key_bytes(key)
+    d = crypto.sha256(b"lane")
+    r, s = fb.sign(key, d)
+    assert p256.verify_batch([pub], [d], [(r, s)], device="cpu") == [True]
+    assert p256.verify_batch([pub], [d], [(r, s + 1)], device="cpu") == [False]
+
+
+def test_verify_batch_without_live_lanes():
+    """Nothing reaches the ladder when no lane passes the checks."""
+    pubs, digests, sigs, expected = corpus()
+    tail = slice(6, 9)
+    assert p256.verify_batch(pubs[tail], digests[tail], sigs[tail],
+                             device="cpu") == expected[tail]
+    assert p256.verify_batch([], [], [], device="cpu") == []
+    assert p256.available()
+
+
+def test_verify_batch_needs_a_device(monkeypatch):
+    """Like every entry point: CUDA unless the caller names the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pubs, digests, sigs, _ = corpus()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        p256.verify_batch(pubs, digests, sigs)
+
+
+class _OnCuda:
+    """A CPU tensor that says it lies on a CUDA device."""
+
+    def __init__(self, t):
+        self._t = t
+        self.dtype, self.shape = t.dtype, t.shape
+        self.device = torch.device("cuda", 0)
+
+    def dim(self):
+        return self._t.dim()
+
+    def is_contiguous(self):
+        return self._t.is_contiguous()
+
+
+def _small_inputs():
+    pubs, digests, sigs, _ = corpus()
+    return [torch.from_numpy(a) for a in ladder_inputs(pubs[:2], digests[:2], sigs[:2])]
+
+
+def test_wrapper_on_cuda_tensor_never_takes_plain_version(monkeypatch):
+    calls = []
+    monkeypatch.setattr(p256, "dual_window_ref", lambda *a: calls.append(a))
+    before = p256.dual_window.launches
+    with pytest.raises(Exception):
+        p256.dual_window(*(_OnCuda(t) for t in _small_inputs()))
+    assert calls == [] and p256.dual_window.launches == before
+
+
+def test_wrapper_on_cpu_tensor_takes_plain_version():
+    args = _small_inputs()
+    before = p256.dual_window.launches
+    got = p256.dual_window(*args)
+    want = p256.dual_window_ref(*args)
+    assert p256.dual_window.launches == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _bad(name):
+    n1, n2, qw = _small_inputs()
+    wide = torch.cat([n1, n1], 1)
+    return {
+        "int64": ((n1.long(), n2, qw), TypeError),
+        "nibble_axis": ((n1[:, :32].contiguous(), n2, qw), ValueError),
+        "lanes_differ": ((n1, n2[:1].contiguous(), qw), ValueError),
+        "qwin_shape": ((n1, n2, qw[:, :8].contiguous()), ValueError),
+        "non_contiguous": ((wide[:, ::2], n2, qw), ValueError),
+        "other_device": ((n1.to("meta"), n2.to("meta"), qw.to("meta")), ValueError),
+    }[name]
+
+
+@pytest.mark.parametrize("case", ["int64", "nibble_axis", "lanes_differ", "qwin_shape",
+                                  "non_contiguous", "other_device"])
+def test_wrapper_rejects(case):
+    args, exc = _bad(case)
+    before = p256.dual_window.launches
+    with pytest.raises(exc):
+        p256.dual_window(*args)
+    assert p256.dual_window.launches == before

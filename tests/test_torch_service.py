@@ -13,8 +13,9 @@ equality.
 - /metrics parses with the port's promtext, /debug/hashgraph renders
   with its dagdump, /debug/trace passes its tracemerge --check;
 - /debug/profile?seconds=0.2 leaves a torch.profiler Chrome trace;
-- /debug/profile?cost=1 answers 501: the torch engine has no cost
-  report (ROADMAP C2, A11);
+- /debug/profile?cost=1 answers 200 with the torch engine's cost report
+  (the JAX engine's key set), and the babble_engine_pass_flops/_bytes
+  gauges appear in /metrics;
 - the capacity sizer behind those scrapes survives a cache that another
   thread writes (ROADMAP C4).
 
@@ -27,6 +28,7 @@ import json
 import os
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from collections import OrderedDict
@@ -220,8 +222,28 @@ def test_capacity_sizing_survives_a_concurrent_writer():
     assert not t.is_alive()
 
 
-def test_cost_report_is_not_implemented_for_the_torch_engine(nets):
-    code, body = http_error(nets["addr"], "/debug/profile?cost=1&seconds=0.1")
-    assert code == 501
-    assert json.loads(body) == {
-        "error": "cost attribution is not implemented for the torch engine"}
+def test_cost_report_answers_for_the_torch_engine(nets):
+    """?cost=1 arms the engine's one-shot capture and answers 200 once a
+    pass has recorded it (202 while it is pending on an idle node: a
+    transaction each poll gives the node a pass to record)."""
+    addr = nets["addr"]
+    deadline = time.monotonic() + DEADLINE_S
+    k = 0
+    while True:
+        nets["nodes"][0].submit_tx(b"cost probe %d" % k)
+        k += 1
+        status, _, body = get(addr, "/debug/profile?cost=1&seconds=5")
+        if status == 200 or time.monotonic() > deadline:
+            break
+        assert status == 202 and json.loads(body) == {"pending": True}
+    assert status == 200
+    report = json.loads(body)["cost"]
+    assert set(report) == {"consensus_fused", "shapes"}
+    assert set(report["consensus_fused"]) == {
+        "flops", "bytes_accessed", "output_bytes", "temp_bytes"}
+    assert set(report["shapes"]) == {"n", "sm", "rcap", "bp", "rw", "iw", "cb", "tw"}
+    assert report["shapes"]["n"] == 4 and report["shapes"]["sm"] == 3
+    assert all(v > 0 for v in report["consensus_fused"].values())
+    metrics = get(addr, "/metrics")[2].decode()
+    assert 'babble_engine_pass_flops{kernel="consensus_fused"' in metrics
+    assert 'babble_engine_pass_bytes{kernel="consensus_fused"' in metrics
