@@ -483,4 +483,12 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # Exit without finalizing the interpreter: daemon threads (gossip, the
+    # engine's stager, device verify) may be inside torch's C++ code, the
+    # interpreter lock released, and the interpreter's unwinding of such a
+    # thread at exit aborts the process (SIGABRT, "terminate called").
+    code = main()
+    logging.shutdown()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -43,6 +43,10 @@ I32 = torch.int32
 # chunks rows under the same bound); the schedule is kept so that it
 # stays checked against the JAX package's.
 _CUBE_ELEMS = 1 << 26
+# The k2 search probes up to _PROBE_WAYS_MAX positions of every chain
+# in one TALLY launch while a launch's compares (rows x witnesses x
+# coordinates, n^3 per position) stay within _CUBE_ELEMS.
+_PROBE_WAYS_MAX = 4095
 
 
 def _chain_chunks(n: int) -> int:
@@ -50,6 +54,46 @@ def _chain_chunks(n: int) -> int:
     while n % cc:
         cc -= 1
     return n // cc
+
+
+def probe_ways(n: int) -> int:
+    """Positions of each chain that one k2 probe launch may test: 4,095
+    at n <= 16, 256 at n = 64, down to 1 (a bisection) where n^3
+    compares per position reach _CUBE_ELEMS (n >= 512)."""
+    return max(1, min(_PROBE_WAYS_MAX, _CUBE_ELEMS // max(n ** 3, 1)))
+
+
+def search_steps(width: int, ways: int) -> int:
+    """Probe launches that settle a search over `width` positions when
+    each tests `ways` of them: a probe leaves at most floor(w /
+    (ways+1)) of w, so one settles any width up to `ways`."""
+    steps = 0
+    while width > 0:
+        width //= ways + 1
+        steps += 1
+    return steps
+
+
+def first_true(probe, hi, steps: int, ways: int):
+    """Per chain c, the first position p < hi[c] where `probe` holds,
+    or hi[c] where it holds nowhere, for a predicate monotone along
+    each chain. probe(pos) takes int64 [chains, ways] positions, each
+    below its chain's hi, and returns bool [chains, ways]. Each of the
+    `steps` probes tests `ways` positions spread evenly over the open
+    interval and keeps the gap holding the answer; search_steps(max
+    hi, ways) probes settle every chain. Returns int64 [chains]."""
+    dev = hi.device
+    frac = torch.arange(1, ways + 1, dtype=torch.int64, device=dev)[None, :]
+    lo = torch.zeros((hi.shape[0], 1), dtype=torch.int64, device=dev)
+    hi = hi.to(torch.int64)[:, None]  # the answer lies in [lo, hi]
+    for s in range(steps):
+        pos = lo + (hi - lo) * frac // (ways + 1)  # in [lo, hi)
+        open_ = pos < hi  # an empty interval (lo == hi) probes nothing
+        ok = probe(pos) & open_
+        if s + 1 < steps:  # the last probe settles hi; lo is not read
+            lo = torch.where(open_ & ~ok, pos + 1, lo).amax(1, keepdim=True)
+        hi = torch.where(ok, pos, hi).amin(1, keepdim=True)
+    return hi[:, 0]
 
 
 def build_chain_tables(la, rbase, chain, *, n):
@@ -64,26 +108,41 @@ def build_chain_tables(la, rbase, chain, *, n):
 
 
 def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
-                    *, n, sm):
+                    *, n, sm, k_bound=None):
     """One frontier round: step(rho, wt_prev, fr_prev) ->
     (wt_row, fr_unclamped, fr_clamped, any_candidate).
 
-    k2 is a vectorized binary search: because per-witness strongly-see
+    k2 is a vectorized search: because per-witness strongly-see
     indicators are monotone along a chain, "sm-th smallest over w of
     the per-w first position" equals "first position whose event
-    strongly sees >= sm witnesses" — so ceil(log2 K)+1 probe steps,
-    each one gathered TALLY launch (hopper_kernels.strongly_see_gathered)
-    over the n chains' probe rows; the skip correction is one more.
-    `fd` is dense [E, n] or a row view (kernels.witness_rows): a view's
-    rows are gathered once per round for the probes (wt_prev's n rows)
-    and once for the skip correction (the candidates')."""
+    strongly sees >= sm witnesses", the one answer any exact search
+    finds. Each probe step tests probe_ways(n) positions per chain,
+    evenly spread over its open interval, in one gathered TALLY launch
+    (hopper_kernels.strongly_see_gathered) and keeps the gap holding
+    the first true one (first_true): search_steps(k_bound, ways)
+    launches, one for chains of up to 4,095 positions at n <= 16 and
+    two for up to 65,536 at n = 64, where a bisection takes 13 and 17.
+    `k_bound` is a host bound on every chain_len (default: the table's
+    K). Every launch and torch call is one more release and re-take of
+    the interpreter lock, which a busy node pays dearly for (ROADMAP
+    C1). The skip correction is one more launch. `fd` is dense [E, n]
+    or a row view (kernels.witness_rows): a view's rows are gathered
+    once per round, for the skip correction (the candidates'), and the
+    next round's probe reuses them."""
     dev = la.device
     k_cap = chain_la.shape[1]
-    probes = max(int(np.ceil(np.log2(max(k_cap, 2)))), 1) + 1
+    width = k_cap if k_bound is None else min(int(k_bound), k_cap)
+    ways = max(1, min(probe_ways(n), width))
+    steps = search_steps(width, ways)
     lanes = torch.arange(n, device=dev)
     chain_rows = chain_la.view(n * k_cap, n)  # row c*K + k = chain_la[c, k]
-    chain_row0 = torch.arange(n, dtype=I32, device=dev) * k_cap
-    wrow0 = torch.zeros((n,), dtype=I32, device=dev)  # one witness row
+    chain_row0 = (torch.arange(n, dtype=torch.int64, device=dev) * k_cap)[:, None]
+    wrow_probe = torch.zeros((n * ways,), dtype=I32, device=dev)  # one witness row
+    wrow0 = wrow_probe[:n]
+    # A row view's witness rows of the last round's candidates: the next
+    # round's witnesses are some of them (wt_row), so its probe reuses
+    # the gathered rows and only masks the slots that were skipped.
+    last = {}
 
     def step(rho, wt_prev, fr_prev):
         # k1: first chain position whose propagated root contribution
@@ -92,26 +151,24 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         k1 = (chain_rbase < rho).sum(1, dtype=I32)
 
         # k2: first position strongly seeing >= sm of wt_prev.
-        f_tab, wt_tab = witness_rows(fd, wt_prev[None])  # [1, n] row, -1 none
+        if last.get("wt_row") is wt_prev:
+            f_tab = last["f_tab"]
+            wt_tab = torch.where(wt_prev[None] >= 0, last["cand_tab"], -1)
+        else:
+            f_tab, wt_tab = witness_rows(fd, wt_prev[None])  # [1, n] row, -1 none
 
-        def sees_sm(mid):
-            """ok[c] = chain_la[c, mid[c]] strongly sees >= sm valid
-            witnesses. A position past the chain's end reads an
-            INT32_MAX row, which would strongly see any witness; the
-            callers' guard mid < hi <= chain_len drops those rows."""
-            xs = chain_row0 + torch.clamp(mid, 0, k_cap - 1)
+        def sees_sm(pos):
+            """ok[c, j] = chain_la[c, pos[c, j]] strongly sees >= sm
+            valid witnesses. A position past the chain's end reads an
+            INT32_MAX row, which would strongly see any witness;
+            first_true probes below hi <= chain_len only."""
+            xs = (chain_row0 + torch.clamp(pos, 0, k_cap - 1)).to(I32).view(-1)
             tally = hopper_kernels.strongly_see_gathered(
-                chain_rows, xs, f_tab, wt_tab, wrow0, sm, "tally")
-            return tally >= sm
+                chain_rows, xs, f_tab, wt_tab, wrow_probe, sm, "tally")
+            return tally.view(n, ways) >= sm
 
-        # search in [0, chain_len]; hi == chain_len means no position
-        lo = torch.zeros((n,), dtype=I32, device=dev)
-        hi = chain_len
-        for _ in range(probes):
-            mid = (lo + hi) // 2
-            ok = sees_sm(mid) & (mid < hi)
-            hi = torch.where(ok, mid, hi)
-            lo = torch.where(ok | (lo >= hi), lo, mid + 1)
+        # search in [0, chain_len]; chain_len means no position
+        hi = first_true(sees_sm, chain_len, steps, ways).to(I32)
         k2 = torch.where(hi < chain_len, hi, INT32_MAX)
 
         fr = torch.maximum(torch.minimum(k1, k2), fr_prev)
@@ -130,6 +187,8 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         rb_c = torch.where(cand_valid, rbase[safe], -1)
         skip = (rb_c >= rho + 1) | (tally >= sm)
         wt_row = torch.where(cand_valid & ~skip, cand, -1)
+        if not isinstance(fd, torch.Tensor):
+            last.update(wt_row=wt_row, f_tab=f_tab, cand_tab=cand_tab)
         return wt_row, fr, fr_c, cand_valid.any()
 
     return step
@@ -161,7 +220,7 @@ def frontier_chunk(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
 
 def frontier_sweep_impl(chain_la, chain_rbase, chain_len, la, fd, rbase,
                         chain, wt_tab, fr_tab, wt_prev, fr_prev, t0,
-                        rho_min, *, n, sm, rcap):
+                        rho_min, *, n, sm, rcap, k_bound=None):
     """Run rounds rho_min+t for t in [t0, rcap) until no chain has a
     candidate, writing rows t of the [rcap, n] tables in place (rows
     below t0 are the frozen warm-start prefix). Returns (wt_tab, fr_tab,
@@ -171,9 +230,10 @@ def frontier_sweep_impl(chain_la, chain_rbase, chain_len, la, fd, rbase,
     The JAX package runs this as a device while-loop; here the host
     reads each round's any-candidate flag, one synchronisation per
     round swept (t_end - t0 of them). t0 and rho_min are host ints.
-    `fd` is dense or a row view (see make_round_step)."""
+    `fd` is dense or a row view and `k_bound` a host bound on the chain
+    lengths (see make_round_step)."""
     step = make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase,
-                           chain, n=n, sm=sm)
+                           chain, n=n, sm=sm, k_bound=k_bound)
     t = t0
     while t < rcap:
         wt_row, fr, fr_c, any_cand = step(rho_min + t, wt_prev, fr_prev)

@@ -256,17 +256,18 @@ strongly_see_gathered.launches = {mode: 0 for mode in MODES}
 
 
 def launch_p256_dual_window(n1: torch.Tensor, n2: torch.Tensor, qwin: torch.Tensor,
-                            gwin: torch.Tensor, out: torch.Tensor, b: int) -> None:
-    """One launch of csrc/p256.cu on the current stream of out's device:
-    the ladder for b lanes into out [3, b, 16] (X, Y, Z). The caller
+                            gwin: torch.Tensor, X: torch.Tensor, Y: torch.Tensor,
+                            Z: torch.Tensor, b: int) -> None:
+    """One launch of csrc/p256.cu on the current stream of X's device:
+    the ladder for b lanes into X, Y and Z ([b, 16] each). The caller
     (p256.dual_window) has checked the operands: int32, contiguous, on
     one CUDA device, n1/n2 [b, 64], qwin [b, 16, 2, 16], gwin [16, 2,
     16]. Raises on a CUDA error."""
     lib = _load("p256.cu")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
         err = lib.babble_p256_dual_window(
             n1.data_ptr(), n2.data_ptr(), qwin.data_ptr(), gwin.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), b, stream)
+            X.data_ptr(), Y.data_ptr(), Z.data_ptr(), b, stream)
     if err != 0:
         raise RuntimeError(f"p256 kernel launch failed: CUDA error {err}")

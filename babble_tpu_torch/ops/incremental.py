@@ -309,7 +309,8 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
                      rounds_prev, rr_prev, fam_rel, in_list_rel,
                      chain_th, chain_tl, rx0, first_undec_prev, und_ids,
                      n_und, t_start,
-                     *, n, sm, rcap, bp, rw, iw, cb, tw, mark=None):
+                     *, n, sm, rcap, bp, rw, iw, cb, tw, mark=None,
+                     k_bound=None, reads=None):
     """The whole per-sync consensus tail — frontier sweep, new-event
     rounds, fame merge, round received and median timestamps — ending
     in ONE packed int32 tensor, so the host pays one device->host copy
@@ -335,7 +336,15 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     Also returns the updated rounds and rr carries, new tensors (the
     inputs are left as they were): the host commits them after a
     successful pull. `mark(name)`, when given, is called after the
-    frontier, the batch rounds and fame + round received."""
+    frontier, the batch rounds and fame + round received. `k_bound` is
+    a host bound on the chain lengths for the frontier's search; fame's
+    host reads are appended to `reads` when a list is given.
+
+    Every torch call here is a release and re-take of the interpreter
+    lock, which costs a node whose gossip threads share the process
+    far more than the call (ROADMAP C1), so the loops run over the
+    window's live rows only and the round-received sweep over row
+    chunks."""
     dev = la.device
     k = chain_th.shape[1]
     fd = _FdRows(ranks, chain_len, creator, index)
@@ -348,7 +357,7 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     wt_tab, fr_tab, t_end = frontier.frontier_sweep_impl(
         chain_la, chain_rb_tab, chain_len, la, fd, rb_vec, chain,
         wt_tab, fr_tab, wt_prev, fr_prev, t0, rho_min,
-        n=n, sm=sm, rcap=rcap)
+        n=n, sm=sm, rcap=rcap, k_bound=k_bound)
     _mark("frontier")
 
     # 2. Rounds + witness flags for the batch [e0, e1): round = rho_min
@@ -379,8 +388,16 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     famous_prev_win = torch.where(row_ok[:, None], fam_rel[t_wc], 0)
     in_list_win = row_ok & in_list_rel[t_wc]
 
-    famous_comp = kernels.decide_fame(
-        wt_win, la, fd, index, coin, n=n, sm=sm, r=rw)
+    # The table is fresh past t0 and the sweep wrote rows [t0, t_end),
+    # so no window row at or past rho_min + t_end holds a witness. A
+    # round with no witness votes on nothing and decides nothing, so
+    # fame over the r_live rows before it is fame over the window.
+    r_live = max(0, min(rw, rho_min + t_end - rx0))
+    famous_comp = torch.zeros((rw, n), dtype=I32, device=dev)
+    if r_live >= 2:
+        famous_comp[:r_live] = kernels.decide_fame(
+            wt_win[:r_live].contiguous(), la, fd, index, coin, n=n, sm=sm, r=r_live,
+            reads=reads)
     wt_valid_f = wt_win >= 0
     mergeable = (in_list_win[:, None] & wt_valid_f
                  & (famous_prev_win == FAME_UNDEFINED))
@@ -425,15 +442,20 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     ix_u = index[uid]
     rnd_u = rounds_all[uid]
     rr_u0 = torch.where(lane_ok, rr_prev[uid], 0)  # pad lanes: never assigned
+    # A lane is received at the first round i0 + t that qualifies it;
+    # rows go in chunks of _RR_ELEMS see-mask elements.
     rr_u = rr_u0
-    for t in range(iw):
-        i = i0 + t
-        la_w = la[wt_safe[t]]  # [n(w), n]
-        see_wx = la_w[:, cr_u] >= ix_u[None, :]  # [n(w), au]
-        s_cnt = (see_wx & fmask[t][:, None]).sum(0, dtype=I32)
-        ok = (elig[t] & (s_cnt > fcnt[t] // 2) & (i > rnd_u)
-              & (rr_u < 0) & lane_ok)
-        rr_u = torch.where(ok, i, rr_u)
+    i_rows = i_vec.to(I32)
+    rows_per = kernels.chunk_width(iw, n * au, budget=_RR_ELEMS)
+    for t_lo in range(0, iw, rows_per):
+        rows = slice(t_lo, min(t_lo + rows_per, iw))
+        la_w = la[wt_safe[rows]]  # [T, n(w), n]
+        see_wx = la_w[:, :, cr_u] >= ix_u  # [T, n(w), au]
+        s_cnt = (see_wx & fmask[rows, :, None]).sum(1, dtype=I32)  # [T, au]
+        ok = (elig[rows, None] & (s_cnt > (fcnt[rows] // 2)[:, None])
+              & (i_rows[rows, None] > rnd_u) & ((rr_u < 0) & lane_ok))
+        first = torch.argmax(ok.to(I32), 0)  # the first qualifying row
+        rr_u = torch.where(ok.any(0), i_rows[rows][first], rr_u)
     newly_l = (rr_u >= 0) & (rr_u0 < 0) & lane_ok
     newly_count = newly_l.sum(dtype=I32)
 
@@ -487,6 +509,10 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     return packed, rounds_all, rr_all
 
 
+# Elements of one round-received chunk's [rows, n, lanes] see mask.
+_RR_ELEMS = 1 << 24
+
+
 def _analyze_cost(args, kw, outputs) -> dict:
     """The cost of one _consensus_fused call, counted from its shapes
     (there is no compiler cost model to ask, as XLA's cost_analysis is
@@ -506,8 +532,9 @@ def _analyze_cost(args, kw, outputs) -> dict:
     - output_bytes: the exact bytes of the outputs (the packed buffer,
       rounds_out and rr_out);
     - temp_bytes: the largest intermediates the pass builds, 4 rw n^2
-      (fame's per-round strongly-see matrices) + n au (one round-received
-      step's see mask) + 16 cb n (the median's int64 keys, sorted).
+      (fame's per-round strongly-see matrices) + T n au (one
+      round-received chunk's see mask, T rows of iw) + 16 cb n (the
+      median's int64 keys, sorted).
 
     Never raises: it runs on the staging worker."""
     try:
@@ -518,12 +545,13 @@ def _analyze_cost(args, kw, outputs) -> dict:
         out_bytes = sum(t.numel() * t.element_size() for t in outputs)
         in_bytes = sum(t.numel() * t.element_size() for t in args
                        if isinstance(t, torch.Tensor))
+        t_rows = kernels.chunk_width(iw, n * au, budget=_RR_ELEMS)
         return {"consensus_fused": {
                     "flops": float(2 * n ** 3 * (rw + tw) + 2 * iw * n * au
                                    + rcap * bp + cb * n * (3 + log_n)),
                     "bytes_accessed": float(in_bytes + out_bytes),
                     "output_bytes": float(out_bytes),
-                    "temp_bytes": float(4 * rw * n * n + n * au + 16 * cb * n)},
+                    "temp_bytes": float(4 * rw * n * n + t_rows * n * au + 16 * cb * n)},
                 "shapes": {k: int(v) for k, v in kw.items()}}
     except Exception as exc:  # noqa: BLE001 - report, don't wedge
         return {"error": str(exc)}
@@ -564,7 +592,7 @@ class PendingPass:
         "und", "und_up", "n_und", "au",
         "undecided_set", "rx0",
         "w_floor", "tw_floor", "rw", "iw", "cb", "tw", "rcap",
-        "tw_i", "t_start",
+        "tw_i", "t_start", "fame_reads",
         "packed_dev", "packed_host", "computed", "pulled",
         "rounds_out", "rr_out",
         "dispatched_ns",
@@ -1312,8 +1340,10 @@ class IncrementalEngine:
                 self._upload(fam_rel), self._upload(in_list_rel),
                 self._chain_th, self._chain_tl, pp.rx0,
                 self._prev_first_undec, pp.und_up, pp.n_und, pp.t_start)
+            pp.fame_reads = []
             packed, pp.rounds_out, pp.rr_out = _consensus_fused(
-                *fused_args, **fused_kw, mark=mark)
+                *fused_args, **fused_kw, mark=mark,
+                k_bound=int(pp.chain_len0.max(initial=0)), reads=pp.fame_reads)
             pp.packed_dev = packed
             if self._stream is None:
                 pp.packed_host, pp.computed, pp.pulled = packed, None, None
@@ -1422,8 +1452,9 @@ class IncrementalEngine:
                 self.c_pull_bytes = int(packed.nbytes)
                 t_end = int(packed[0])
                 newly_count = int(packed[1])
-                # One flag read per frontier round swept, one pull.
-                syncs += t_end - pp.t0 + 1
+                # One flag read per frontier round swept, fame's reads,
+                # one pull.
+                syncs += t_end - pp.t0 + len(pp.fame_reads) + 1
                 if t_end == pp.rcap:
                     # Frontier overflow: fame/rr ran against a truncated
                     # table — a safe but incomplete subset. Redo bigger.
@@ -1465,7 +1496,7 @@ class IncrementalEngine:
                 self._dbg_windows = dict(
                     rcap=pp.rcap, rw=pp.rw, iw=pp.iw, cb=pp.cb, au=pp.au,
                     bp=pp.bp, tw=pp.tw_i, t0=pp.t0, t_end=t_end,
-                    rel_rows=pp.rel_rows)
+                    rel_rows=pp.rel_rows, fame_reads=len(pp.fame_reads))
                 break
         finally:
             if _uctx is not None:

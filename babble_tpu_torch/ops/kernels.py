@@ -256,80 +256,96 @@ def compute_rounds(self_parent, other_parent, creator, index, la, fd, levels,
     return rounds[:e], wit[:e], wt[:r]
 
 
-def decide_fame(wt, la, fd, index, coin, *, n, sm, r):
+def decide_fame(wt, la, fd, index, coin, *, n, sm, r, reads=None):
     """Virtual voting — reference DecideFame (hashgraph.go:649-730).
 
-    One sweep over voting rounds j: round-j witnesses vote on every
-    earlier witness slot (rx, cx). First-round votes are plain `see`
-    (ancestry); later rounds take the majority over the round-(j-1)
-    witnesses they strongly see, deciding fame on a >= 2n/3+1 tally in
-    normal rounds and flipping the precomputed middle-bit coin in coin
-    rounds (diff % n == 0, hashgraph.go:695-709,1039-1048). Decisions
-    are consistent across deciders, so the sweep decides without the
-    reference's early-break bookkeeping; votes on already-decided slots
-    are computed but gated out of the fame table.
+    Round-j witnesses vote on every earlier witness slot (rx, cx).
+    First-round votes are plain `see` (ancestry); later rounds take the
+    majority over the round-(j-1) witnesses they strongly see, deciding
+    fame on a >= 2n/3+1 tally in normal rounds and flipping the
+    precomputed middle-bit coin in coin rounds (diff % n == 0,
+    hashgraph.go:695-709,1039-1048). Decisions are consistent across
+    deciders, so the sweep decides without the reference's early-break
+    bookkeeping; votes on already-decided slots are computed but gated
+    out of the fame table.
+
+    A slot's votes depend on the rounds at and above its own only, so
+    the sweep runs by depth d = j - rx with every slot row at once: step
+    d is the votes of round rx+d on row rx, one batched [r, n, n]
+    product. It stops when no undecided slot has a round left to vote
+    in, one host read per step from d = 2 (appended to `reads` when a
+    list is given): a node's window decides its rounds within a few
+    steps, where a sweep by round takes r - 1 steps of ~30 torch calls,
+    each a release and re-take of the interpreter lock (ROADMAP C1).
 
     The strongly-see matrices of all voting rounds — round j's
     witnesses against round j-1's — depend on the witness table alone,
-    never on the votes, so one gathered MATRIX launch
-    (hopper_kernels.strongly_see_gathered) gives them all at the first
-    round; past 2^26 bytes of output they come in chunks of rounds.
-    `fd` is dense or a row view (witness_rows): the launch reads the
-    window's witness rows either way.
+    never on the votes, so gathered MATRIX launches
+    (hopper_kernels.strongly_see_gathered) give them all first; past
+    2^26 bytes of output they come in chunks of rounds. `fd` is dense
+    or a row view (witness_rows): the launch reads the window's witness
+    rows either way.
 
     Returns famous[r, n] trilean (0 undefined / 1 true / 2 false)."""
     # imported here: hopper_kernels imports this module's plain versions
     from .hopper_kernels import strongly_see_gathered
 
     dev = la.device
+    famous = torch.zeros((r, n), dtype=I32, device=dev)
+    if r < 2:
+        return famous
     wt_valid = wt >= 0
     wt_safe = torch.where(wt_valid, wt, 0)
     idx_x = torch.where(wt_valid, index[wt_safe], -1)  # [r, n]
-    rx = torch.arange(r, dtype=I32, device=dev)[:, None].expand(r, n)
-    famous = torch.zeros((r, n), dtype=I32, device=dev)
-    v_prev = torch.zeros((n, r, n), dtype=torch.bool, device=dev)
     per_launch = chunk_width(r - 1, n * n)  # voting rounds per launch
     f_tab, w_tab = witness_rows(fd, wt)
+    # ss[q][y, x]: round q+1's witness y strongly sees round q's witness
+    # x (empty slots: y reads row 0 and is gated by y_valid below; x is
+    # masked by the kernel)
+    blocks = []
+    for j in range(1, r, per_launch):
+        hi = min(j + per_launch, r)
+        xs = wt_safe[j:hi].reshape(-1)
+        wrow = torch.arange(j - 1, hi - 1, dtype=I32, device=dev).repeat_interleave(n)
+        blocks.append(strongly_see_gathered(la, xs, f_tab, w_tab, wrow, sm, "matrix").view(
+            torch.bool).view(hi - j, n, n))
+    ss = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
 
-    for j in range(1, r):
-        if (j - 1) % per_launch == 0:
-            # ss_blk[t][y, x]: round j+t's witness y strongly sees round
-            # j+t-1's witness x (empty slots: y reads row 0 and is gated
-            # by y_valid below; x is masked by the kernel)
-            hi = min(j + per_launch, r)
-            xs = wt_safe[j:hi].reshape(-1)
-            wrow = torch.arange(j - 1, hi - 1, dtype=I32, device=dev).repeat_interleave(n)
-            ss_blk = strongly_see_gathered(la, xs, f_tab, w_tab, wrow, sm, "matrix").view(
-                torch.bool).view(hi - j, n, n)
-        ss = ss_blk[(j - 1) % per_launch]
-        y_valid, ys = wt_valid[j], wt_safe[j]
-        see_v = la[ys][:, None, :] >= idx_x[None, :, :]  # [n(y), r, n(cx)]
-        # 0/1 float32 product: tallies are <= n < 2^24, exact in fp32
-        # with TF32 off (devices.py).
-        yays = (ss.to(torch.float32) @ v_prev.reshape(n, r * n).to(torch.float32)
-                ).to(I32).reshape(n, r, n)
-        tot = ss.sum(-1, dtype=I32)[:, None, None]
-        nays = tot - yays
-        v = yays >= nays
-        t = torch.maximum(yays, nays)
-        diff = j - rx  # [r, n]
-        is_first = (diff == 1)[None]
-        normal = ((diff % n) != 0)[None]  # floor mod, as jnp's %
-        coin_vote = coin[ys].to(torch.bool)[:, None, None].expand(see_v.shape)
-        vote = torch.where(
-            is_first, see_v, torch.where(normal | (t >= sm), v, coin_vote))
-        active = y_valid[:, None, None] & wt_valid[None] & (rx < j)[None]
-        vote = vote & active
-        decide_now = active & ~is_first & normal & (t >= sm)
-        dec_any = decide_now.any(0)
-        dec_val = (decide_now & v).any(0)
-        undecided = (famous == FAME_UNDEFINED) & wt_valid
-        famous = torch.where(
-            undecided & dec_any,
-            torch.where(dec_val, FAME_TRUE, FAME_FALSE).to(I32),
-            famous,
-        )
-        v_prev = vote
+    rows = torch.arange(r, device=dev)
+    coin_w = coin[wt_safe].to(torch.bool)  # [r, n]
+    for d in range(1, r):
+        # row rx's voters: round rx+d's witnesses y
+        jr = torch.clamp(rows + d, max=r - 1)
+        y_valid = wt_valid[jr] & (rows + d < r)[:, None]  # [r, n(y)]
+        active = y_valid[:, :, None] & wt_valid[:, None, :]  # [r, n(y), n(cx)]
+        if d == 1:
+            vote = (la[wt_safe[jr]] >= idx_x[:, None, :]) & active
+        else:
+            ssd = ss[jr - 1]  # [r, n(y), n(z)]
+            # 0/1 float32 product: tallies are <= n < 2^24, exact in
+            # fp32 with TF32 off (devices.py).
+            yays = torch.bmm(ssd.to(torch.float32), vote.to(torch.float32)).to(I32)
+            nays = ssd.sum(-1, dtype=I32)[:, :, None] - yays
+            v = yays >= nays
+            strong = torch.maximum(yays, nays) >= sm
+            if d % n:  # a normal round decides on a strong tally
+                decide_now = active & strong
+                dec_any = decide_now.any(1)
+                dec_val = (decide_now & v).any(1)
+                famous = torch.where(
+                    dec_any & (famous == FAME_UNDEFINED) & wt_valid,
+                    torch.where(dec_val, FAME_TRUE, FAME_FALSE).to(I32),
+                    famous,
+                )
+                vote = v & active
+            else:  # a coin round flips the coin where the tally is weak
+                vote = torch.where(strong, v, coin_w[jr][:, :, None]) & active
+            # another step only while an undecided slot has a round left
+            left = (rows + d + 1 < r)[:, None] & wt_valid & (famous == FAME_UNDEFINED)
+            if reads is not None:
+                reads.append(1)
+            if not bool(left.any()):
+                break
     return famous
 
 

@@ -12,10 +12,15 @@ backends by tests/test_torch_p256.py):
 
 - host: range checks, per-creator 4-bit window tables (shared with the
   pure fallback's `_q_window` LRU), w = s^-1 via ONE Montgomery batched
-  inversion, u1/u2 nibble decomposition, and the final Jacobian ->
-  affine conversion and `x mod N == r` verdict in big ints;
+  inversion, u1/u2 nibble decomposition, and the verdict `x mod N == r`
+  on the Jacobian point in big ints, without an inversion (`_verdict`);
 - device: the 64-nibble dual-window ladder (4 doublings and at most 2
-  mixed additions per nibble), one signature per lane.
+  mixed additions per nibble), a team of 8 lanes per signature.
+
+One call of `verify_batch` makes one host-to-device copy (the digits
+and the window tables, packed into one pinned staging tensor that the
+kernel reads in place), one launch and one device-to-host copy (X and
+Z).
 
 `dual_window(n1, n2, qwin)` has the layout of the JAX package's jitted
 ladder: n1/n2 int32 [B, 64] MSB-first nibbles, qwin int32 [B, 16, 2,
@@ -38,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -316,14 +322,10 @@ def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def dual_window(n1: torch.Tensor, n2: torch.Tensor,
-                qwin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """u1*G + u2*Q for each lane as Jacobian (X, Y, Z), each int32
-    [B, 16] 16-bit limbs in [0, P). n1, n2: int32 [B, 64] MSB-first
-    nibbles of u1 and u2; qwin: int32 [B, 16, 2, 16], the lane's Q
-    window table. All contiguous and on one device. CUDA tensors go to
-    the hand-written kernel (one launch on the current stream, counted
-    in `dual_window.launches`); CPU tensors go to `dual_window_ref`."""
+def _dual_window_xzy(n1: torch.Tensor, n2: torch.Tensor, qwin: torch.Tensor) -> torch.Tensor:
+    """`dual_window`'s work with its outputs as one int32 [3, B, 16]
+    tensor in the order X, Z, Y, so that X and Z are one piece to copy
+    back."""
     _check("n1", n1, (None, _NIBBLES))
     b = n1.shape[0]
     _check("n2", n2, (b, _NIBBLES))
@@ -332,19 +334,32 @@ def dual_window(n1: torch.Tensor, n2: torch.Tensor,
     if n2.device != dev or qwin.device != dev:
         raise ValueError("operands on more than one device")
     if dev.type == "cpu":
-        return dual_window_ref(n1, n2, qwin)
+        X, Y, Z = dual_window_ref(n1, n2, qwin)
+        return torch.stack((X, Z, Y))
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     out = torch.empty((3, b, _LIMBS), dtype=torch.int32, device=dev)
     if b == 0:
-        return out[0], out[1], out[2]
+        return out
     with _dev_lock:
         g = _g_tables.get(dev)
         if g is None:
             g = _g_tables[dev] = torch.from_numpy(_G_WIN_LIMBS).to(dev)
-    hopper_kernels.launch_p256_dual_window(n1, n2, qwin, g, out, b)
+    hopper_kernels.launch_p256_dual_window(n1, n2, qwin, g, out[0], out[2], out[1], b)
     hopper_kernels.count_launch(dual_window)
-    return out[0], out[1], out[2]
+    return out
+
+
+def dual_window(n1: torch.Tensor, n2: torch.Tensor,
+                qwin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """u1*G + u2*Q for each lane as Jacobian (X, Y, Z), each int32
+    [B, 16] 16-bit limbs in [0, P). n1, n2: int32 [B, 64] MSB-first
+    nibbles of u1 and u2; qwin: int32 [B, 16, 2, 16], the lane's Q
+    window table. All contiguous and on one device. CUDA tensors go to
+    the hand-written kernel (one launch on the current stream, counted
+    in `dual_window.launches`); CPU tensors go to `dual_window_ref`."""
+    out = _dual_window_xzy(n1, n2, qwin)
+    return out[0], out[2], out[1]
 
 
 dual_window.launches = 0
@@ -366,16 +381,32 @@ def available() -> bool:
     return True
 
 
+def _verdict(X: int, Z: int, r: int) -> bool:
+    """`x mod N == r` for the affine x = X / Z^2 of a Jacobian point, with
+    no inversion: x lies in [0, P) and N < P < 2N, so x mod N == r exactly
+    when x == r or, where r + N < P, x == r + N; and x == v exactly when
+    X == v Z^2 (mod P). Z = 0 is the identity point: reject."""
+    if Z == 0:
+        return False
+    z2 = Z * Z % P
+    return X == r * z2 % P or (r + N < P and X == (r + N) * z2 % P)
+
+
 def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
-                 sigs: Sequence[Tuple[int, int]],
-                 device=None) -> List[Optional[bool]]:
+                 sigs: Sequence[Tuple[int, int]], device=None,
+                 parts: Optional[dict] = None) -> List[Optional[bool]]:
     """Batched ECDSA verify on `device` (CUDA unless the caller names
     another) with the host backends' exact verdict contract: True/False
     per signature, None for a malformed creator point. Equal to
     `crypto.verify_batch` on every input, because both sides compute the
     same u1*G + u2*Q over the same window tables; only where the ladder
-    runs differs."""
+    runs differs.
+
+    `parts`, if a dict, is filled with the wall seconds of "prelude",
+    "upload", "kernel", "download" and "epilogue"; only then is the
+    stream synchronised after the upload and after the kernel."""
     dev = resolve_device(device)
+    t0 = time.perf_counter()
     n = len(pubs)
     verdicts: List[Optional[bool]] = [False] * n
     qwins = [None] * n
@@ -400,20 +431,49 @@ def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
         return verdicts
 
     # Host prelude: one Montgomery batched inversion for every w, then
-    # the nibble decomposition of u1 = z*w and u2 = r*w.
+    # the nibble decomposition of u1 = z*w and u2 = r*w, written with the
+    # window tables into one staging tensor (pinned for a CUDA device):
+    # n1 [b, 64], n2 [b, 64], qwin [b, 16, 2, 16].
     ws = _fb._batch_inv_n([sigs[i][1] for i in live])
     u1 = [int.from_bytes(digests[i], "big") % N * w % N for i, w in zip(live, ws)]
     u2 = [sigs[i][0] * w % N for i, w in zip(live, ws)]
-    host = (_nibbles_of(u1), _nibbles_of(u2), np.stack([qwins[i] for i in live]))
-    with (torch.cuda.stream(_verify_stream(dev)) if dev.type == "cuda"
-          else contextlib.nullcontext()):
-        X, _, Z = dual_window(*(torch.from_numpy(a).to(dev) for a in host))
-        X, Z = X.cpu().numpy(), Z.cpu().numpy()
-    # Host epilogue: affine x = X/Z^2 and the `x mod N == r` verdict in
-    # big ints (Z = 0 is the identity point: reject).
-    for i, x, z in zip(live, _from_limbs(X), _from_limbs(Z)):
-        if z == 0:
-            verdicts[i] = False
-            continue
-        verdicts[i] = x * pow(z, -2, P) % P % N == sigs[i][0]
+    b = len(live)
+    cuda = dev.type == "cuda"
+    stage = torch.empty(b * (2 * _NIBBLES + 16 * 2 * _LIMBS), dtype=torch.int32,
+                        pin_memory=cuda)
+    view = stage.numpy()
+    view[:b * _NIBBLES] = _nibbles_of(u1).ravel()
+    view[b * _NIBBLES:2 * b * _NIBBLES] = _nibbles_of(u2).ravel()
+    np.stack([qwins[i] for i in live], out=view[2 * b * _NIBBLES:].reshape(b, 16, 2, _LIMBS))
+    stream = _verify_stream(dev) if cuda else None
+    marks = [("prelude", time.perf_counter())]
+
+    def mark(name):
+        if parts is not None:
+            if cuda:
+                stream.synchronize()
+            marks.append((name, time.perf_counter()))
+
+    with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+        dstage = stage.to(dev, non_blocking=True)
+        mark("upload")
+        out = _dual_window_xzy(dstage[:b * _NIBBLES].view(b, _NIBBLES),
+                               dstage[b * _NIBBLES:2 * b * _NIBBLES].view(b, _NIBBLES),
+                               dstage[2 * b * _NIBBLES:].view(b, 16, 2, _LIMBS))
+        mark("kernel")
+        xz = torch.empty((2, b, _LIMBS), dtype=torch.int32, pin_memory=cuda)
+        xz.copy_(out[:2], non_blocking=True)
+        if cuda:
+            stream.synchronize()
+    marks.append(("download", time.perf_counter()))
+    # Host epilogue: the verdict on the Jacobian point (Z = 0, the
+    # identity point, rejects).
+    for i, x, z in zip(live, _from_limbs(xz[0].numpy()), _from_limbs(xz[1].numpy())):
+        verdicts[i] = _verdict(x, z, sigs[i][0])
+    marks.append(("epilogue", time.perf_counter()))
+    if parts is not None:
+        prev = t0
+        for name, t in marks:
+            parts[name] = t - prev
+            prev = t
     return verdicts

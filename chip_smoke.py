@@ -2,6 +2,11 @@
 """Drive the PyTorch/CUDA port (babble_tpu_torch) on one GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py sustained_profile node node node   # some phases
+
+With phase names, it builds the kernels and runs those phases in the
+order given, one JSON line each, and prints neither the kernels line
+nor the final "ok" line.
 
 Phases (any failure exits nonzero and the final `{"ok": true, ...}`
 line is not printed):
@@ -19,15 +24,18 @@ line is not printed):
               the main path's shapes (GATHERED_SHAPES: fame's batch,
               the frontier probe, a north-star level with mixed witness
               rows, a ragged case); kernel and plain times and bounds;
-4. p256     — the P-256 ladder of device ECDSA verify: the kernel
+4. p256     — the P-256 ladder of device ECDSA verify: the team
+              kernel's own chain bound from its SASS; the kernel
               (csrc/p256.cu) against its plain PyTorch version on the
               card, exactly, at B = 8 (tests/test_crypto.py's corpus and
-              the d = 1 degeneracies) and B = 64; verify_batch's verdicts
-              against the host backend's crypto.verify_batch at B = 1,
-              8, 64, 512, 4,096 and 32,768 (signed_gossip(64, 32,768, 3)
-              with every 97th s corrupted); per size the kernel's time
-              (CUDA events), verify_batch's wall (prelude, kernel,
-              epilogue), the host backend's wall and the kernel's bound;
+              the d = 1 degeneracies) and B = 1, 37 and 64 (the signed
+              stream's first signatures); verify_batch's parts (prelude,
+              upload, kernel, download, epilogue) at B = 8 and 64;
+              verify_batch's verdicts against the host backend's
+              crypto.verify_batch at B = 1, 8, 64, 512, 4,096 and 32,768
+              (signed_gossip(64, 32,768, 3) with every 97th s corrupted);
+              per size the kernel's time (CUDA events), verify_batch's
+              wall, the host backend's wall and the kernel's bounds;
 5. small    — a small DAG through both engines on the card and on the
               CPU (plain versions): all six outputs identical;
 6. headline — synthetic_dag(64, 50_000, seed=1) through run_pipeline
@@ -137,6 +145,7 @@ import logging
 import os
 import platform
 import queue
+import re
 import statistics
 import subprocess
 import sys
@@ -224,11 +233,15 @@ CLI_DEVICE_VERIFY = (0,)
 FAILED_PASS = "consensus pass failed"
 # The p256 phase: verdicts at these batch sizes, the largest the
 # signatures of signed_gossip(*P256_SIGNED) with every P256_CORRUPT_EVERY-th
-# s corrupted; the kernel against its plain version at P256_PLAIN sizes.
+# s corrupted; the kernel against its plain version at P256_PLAIN sizes
+# (8: the corpus and the degeneracies; the others: the signed stream's
+# first B, 37 a ragged warp); verify_batch's parts at P256_PARTS sizes.
 P256_SIZES = (1, 8, 64, 512, 4096, 32_768)
 P256_SIGNED = (64, 32_768, 3)
 P256_CORRUPT_EVERY = 97
-P256_PLAIN = (8, 64)
+P256_PLAIN = (1, 8, 37, 64)
+P256_PARTS = (8, 64)
+P256_PARTS_RUNS = 5
 ENGINE_BATCH = 4096
 PROFILED_BATCH = 8  # the steady pass sustained_profile traces
 KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
@@ -236,7 +249,9 @@ KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
 # slots, n, R witness rows, how rows name witness rows).
 # - fame_batch: decide_fame at the headline, r_small - 1 = 127 voting
 #   rounds x 64 witnesses, every 64-row tile naming one round;
-# - frontier_probe: one probe (or skip correction) at the headline;
+# - frontier_probe: one probe of the frontier's k2 search at the
+#   headline, 256 positions of each of the 64 chains (frontier.probe_ways);
+# - skip_correction: the frontier's skip correction at the headline;
 # - northstar_level: compute_rounds on a 1024-wide level at n = 1024,
 #   rows naming two adjacent parent rounds at random, as a level's do;
 # - ragged: nothing a multiple of the tile, five witness rows mixed;
@@ -245,12 +260,15 @@ KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
 #   n = 1024, against the window's compact witness-row table;
 # - northstar_engine_probe: the engine's frontier probe at n = 1024;
 # - node_fame_window / node_frontier_probe: the live node's engine at
-#   n = 4 (phase node), the main path's shapes.
+#   n = 4 (phase node), the main path's shapes; its probe tests 1,024
+#   positions of each chain (a chain of ~1,000 events, phase node's).
+NODE_PROBE_WAYS = 1024
 GATHERED_SHAPES = [
     ("node_fame_window", 15 * 4, 4, 4, 15, "tiles"),
-    ("node_frontier_probe", 4, 4, 4, 1, "one"),
+    ("node_frontier_probe", 4 * NODE_PROBE_WAYS, 4, 4, 1, "one"),
     ("fame_batch", 127 * 64, 64, 64, 127, "tiles"),
-    ("frontier_probe", 64, 64, 64, 1, "one"),
+    ("frontier_probe", 64 * 256, 64, 64, 1, "one"),
+    ("skip_correction", 64, 64, 64, 1, "one"),
     ("northstar_level", 1024, 1024, 1024, 7, "two"),
     ("ragged", 130, 200, 100, 5, "mixed"),
     ("engine_fame_window", 15 * 64, 64, 64, 15, "tiles"),
@@ -386,14 +404,17 @@ def launches_by_site():
 def check_sites(dag, engine, launches, sites, r_small) -> None:
     """The launches a run must make: none of the counts entry; fame one
     matrix launch per chunk of voting rounds (one at these sizes); the
-    closure engine one probe launch per frontier probe and one skip
-    correction per swept round; the wavefront one compute_rounds launch
-    per DAG level."""
+    closure engine one probe launch per step of the frontier's k2
+    search (search_steps over the chain table's K positions) and one
+    skip correction per swept round; the wavefront one compute_rounds
+    launch per DAG level."""
+    from babble_tpu_torch.ops.frontier import probe_ways, search_steps
     from babble_tpu_torch.ops.kernels import chunk_width
 
     n = dag.n
     fame = -(-(r_small - 1) // chunk_width(r_small - 1, n * n))
-    probes = max(int(np.ceil(np.log2(max(dag.chain.shape[1], 2)))), 1) + 1
+    k = dag.chain.shape[1]
+    probes = search_steps(k, max(1, min(probe_ways(n), k)))
     if engine == "wavefront":
         tally = {"compute_rounds": dag.levels.shape[0]}
     else:
@@ -460,7 +481,10 @@ def phase_build(rec):
                "ptxas": info["log"]} for name, info in infos.items()}}
     print(f"build: {rec['build']['seconds']:.2f} s")
     for name, info in infos.items():
-        print(f"build {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
+        regs = re.findall(r"Used (\d+) registers", info["log"])
+        spills = re.findall(r"(\d+) bytes spill stores", info["log"])
+        print(f"build {name}: nvcc {info['seconds']:.2f} s -> {info['path']}; "
+              f"registers {regs}, spill stores {spills} bytes")
         print(info["log"])
 
 
@@ -612,6 +636,50 @@ def p256_lane_ms(n1, n2):
     return float((256 * 8 + adds.max() * 12) * 64 * 2 / SM_CLOCK_HZ * 1e3)
 
 
+def p256_team_chain(sass: str) -> dict:
+    """The team kernel's own chain bound, from its SASS (cuobjdump
+    -sass of the built library): the instructions one lane issues for
+    one signature, at one a clock (SM_CLOCK_HZ). The ladder's step loop
+    (6 steps a nibble, 64 nibbles) holds two regions behind its two
+    longest forward branches: the mixed add (skipped on steps 0-3, run
+    on steps 4 and 5 whatever the digit: 128 a signature) and the
+    doubling (256); inside both, a short forward branch over a region
+    with a VOTE skips a reduction's rare fix-up, which is not counted,
+    nor are the prologue and the stores."""
+    part = next(f for f in sass.split("Function : ")[1:]
+                if "p256_dual_window_kernel" in f.splitlines()[0])
+    ins = [(int(m.group(1), 16), m.group(2)) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+
+    def count(lo, hi):  # instructions at addresses in [lo, hi)
+        return sum(1 for a, _ in ins if lo <= a < hi)
+
+    branches = [(a, int(m.group(1), 16)) for a, text in ins
+                for m in [re.search(r"\bBRA (?:\S+, )?0x([0-9a-f]+)", text)] if m]
+    back = [(a, t) for a, t in branches if t < a]
+    step = max(back, key=lambda b: b[1])  # the innermost loop: the latest head
+    nibble = min((b for b in back if b[1] < step[1] and b[0] > step[0]),
+                 key=lambda b: step[1] - b[1])
+    inside = [(a, t) for a, t in branches if step[1] <= a < t <= step[0] + 16]
+    regions = sorted(sorted(inside, key=lambda b: b[0] - b[1])[:2])  # add, doubling
+
+    def region(a, t):
+        n = count(a + 1, t)
+        for fa, ft in inside:
+            if a < fa and ft <= t and (fa, ft) not in regions and any(
+                    "VOTE" in text for x, text in ins if fa < x < ft):
+                n -= count(fa + 1, ft)
+        return n
+
+    add, dbl = (region(a, t) for a, t in regions)
+    step_n = count(step[1], step[0] + 1) - sum(count(a + 1, t) for a, t in regions)
+    nibble_n = count(nibble[1], nibble[0] + 1) - count(step[1], step[0] + 1)
+    total = 128 * add + 256 * dbl + 384 * step_n + 64 * nibble_n
+    return {"add": add, "double": dbl, "step": step_n, "nibble": nibble_n,
+            "kernel_static": len(ins), "per_signature": total,
+            "ms": total / SM_CLOCK_HZ * 1e3}
+
+
 def p256_signed_batch():
     """(pubs, digests, sigs) of signed_gossip(*P256_SIGNED)'s events,
     every P256_CORRUPT_EVERY-th s corrupted."""
@@ -640,15 +708,29 @@ def phase_p256(rec, device="cuda"):
     res["signed"] = {"events": len(s_pubs), "signer": signer,
                      "seconds": time.perf_counter() - t_gen}
 
+    # The team kernel's own chain bound, from the compiled source.
+    chain = None
+    if device == "cuda":
+        from babble_tpu_torch.ops import hopper_kernels
+
+        lib = hopper_kernels.build(hopper_kernels.SOURCES[1])["path"]
+        cuobjdump = os.path.join(os.path.dirname(hopper_kernels._nvcc()), "cuobjdump")
+        chain = res["team_chain"] = p256_team_chain(subprocess.run(
+            [cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout)
+        print(f"p256 team chain: {chain['per_signature']} instructions a lane per signature "
+              f"(add {chain['add']}, doubling {chain['double']}, step {chain['step']}, "
+              f"nibble {chain['nibble']}; {chain['kernel_static']} in the kernel) = "
+              f"{chain['ms']:.4f} ms at one a clock")
+
     # The kernel against its plain version: the corpus's in-range lanes
-    # and the degeneracies (8 lanes), then 64 signatures of the stream.
+    # and the degeneracies (8 lanes), then the signed stream's first B.
     pubs, digests, sigs, expected = p256_corpus()
     live = [i for i, v in enumerate(expected) if v is not None and 1 <= sigs[i][0] < p256.N]
     dp, dd, ds = p256_degeneracies()
-    plain_batches = {8: p256_lanes([pubs[i] for i in live] + dp,
-                                   [digests[i] for i in live] + dd,
-                                   [sigs[i] for i in live] + ds),
-                     64: p256_lanes(s_pubs[:64], s_digests[:64], s_sigs[:64])}
+    plain_batches = {b: p256_lanes(s_pubs[:b], s_digests[:b], s_sigs[:b])
+                     for b in P256_PLAIN if b != 8}
+    plain_batches[8] = p256_lanes([pubs[i] for i in live] + dp, [digests[i] for i in live] + dd,
+                                  [sigs[i] for i in live] + ds)
     rows = []
     for b in P256_PLAIN:
         arrs = plain_batches[b]
@@ -664,13 +746,29 @@ def phase_p256(rec, device="cuda"):
         bound, by = p256_bound_ms(*arrs)
         lane_ms = p256_lane_ms(*arrs[:2])
         rows.append({"b": b, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "lane_chain_ms": lane_ms})
+                     "bound_ms": bound, "bound_by": by, "lane_chain_ms": lane_ms,
+                     "team_chain_ms": chain and chain["ms"]})
         print(f"p256 kernel vs plain B={b}: max_abs_err={err} kernel {ms:.3f} ms plain "
               f"{plain_ms:.1f} ms (wall, synchronised) bound {bound:.5f} ms ({by}), "
-              f"one lane's chain {lane_ms:.4f} ms")
+              f"one lane's chain {lane_ms:.4f} ms, the team's chain "
+              f"{chain and round(chain['ms'], 4)} ms")
         if err != 0:
             raise AssertionError(f"p256 kernel != plain version at B={b}")
     res["kernel_vs_plain"] = rows
+
+    # verify_batch's parts (the stream synchronised between them), the
+    # median of P256_PARTS_RUNS calls a size.
+    parts = {}
+    for b in P256_PARTS:
+        runs = []
+        for _ in range(P256_PARTS_RUNS):
+            runs.append({})
+            p256.verify_batch(s_pubs[:b], s_digests[:b], s_sigs[:b], device=device,
+                              parts=runs[-1])
+        parts[b] = {k: statistics.median(r[k] for r in runs) * 1e3 for k in runs[0]}
+        print(f"p256 verify_batch parts B={b} (ms, median of {P256_PARTS_RUNS}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts[b].items()))
+    res["verify_parts_ms"] = parts
 
     # Verdicts against the host backend, with times per size.
     corpus_dev = p256.verify_batch(pubs, digests, sigs, device=device)
@@ -702,7 +800,8 @@ def phase_p256(rec, device="cuda"):
                "kernel_ms": ms, "kernel_us_per_event": ms * 1e3 / b,
                "verify_ms": verify_s * 1e3, "verify_us_per_event": verify_s * 1e6 / b,
                "host_ms": host_s * 1e3, "host_us_per_event": host_s * 1e6 / b,
-               "bound_ms": bound, "bound_by": by, "lane_chain_ms": p256_lane_ms(*arrs[:2])}
+               "bound_ms": bound, "bound_by": by, "lane_chain_ms": p256_lane_ms(*arrs[:2]),
+               "team_chain_ms": chain and chain["ms"]}
         sizes.append(row)
         print(f"p256 B={b}: verdicts equal {row['equal']} ({row['rejected']} rejected), "
               f"{launches} launch(es); "
@@ -710,7 +809,8 @@ def phase_p256(rec, device="cuda"):
               f"verify_batch {row['verify_ms']:.2f} ms ({row['verify_us_per_event']:.2f} "
               f"us/event), host {crypto.BACKEND} {row['host_ms']:.2f} ms "
               f"({row['host_us_per_event']:.2f} us/event), bound {bound:.5f} ms ({by}), "
-              f"one lane's chain {row['lane_chain_ms']:.4f} ms")
+              f"one lane's chain {row['lane_chain_ms']:.4f} ms, the team's chain "
+              f"{row['team_chain_ms'] and round(row['team_chain_ms'], 4)} ms")
         if not row["equal"] or row["rejected"] != b // P256_CORRUPT_EVERY or launches != 1:
             raise AssertionError(f"p256 at B={b}: {row}")
     res["sizes"] = sizes
@@ -1593,9 +1693,15 @@ def delivery_check(node, own: dict):
     """A stopped node's app delivery against what it committed. `own` is
     {round: block bytes} of its store's blocks (committed_blocks).
     Delivered blocks come in round order and equal the committed ones;
-    every committed block was delivered or is still queued
-    (queued_blocks), all but DELIVERY_ALLOWANCE of them, and the queued
-    ones all come after the delivered ones. Returns (ok, counts)."""
+    every committed block with transactions was delivered or is still
+    queued (queued_blocks), all but DELIVERY_ALLOWANCE of them, and the
+    queued ones all come after the delivered ones. A block without
+    transactions is stored but never handed to the app (both graphs
+    call the commit callback only for a block with transactions): the
+    rounds a node decides after the last transaction was submitted have
+    such blocks. Returns (ok, counts)."""
+    store = node.core.hg.store
+    own = {rr: blk for rr, blk in own.items() if store.get_block(rr).transactions}
     delivered = node.proxy.blocks
     rounds = [rr for rr, _ in delivered]
     held = queued_blocks(node)
@@ -2132,6 +2238,18 @@ class CliNet:
             n += sum(text in line for line in log)
         return n
 
+    def print_tails(self, rcs, lines=12):
+        """Print the last lines of the current run's stderr of every node
+        whose exit code in `rcs` is not 0: what it said last."""
+        for log, rc in zip(self.stderr[-CLI_N:], rcs):
+            if rc == 0:
+                continue
+            log.flush()
+            log.seek(0)
+            for line in log.readlines()[-lines:]:
+                print(f"cli net stderr tail ({os.path.basename(log.name)}, exit {rc}): "
+                      f"{line.rstrip()[:300]}")
+
     def error_lines(self, limit=8) -> list:
         out = []
         for log in self.stderr:
@@ -2282,6 +2400,7 @@ def phase_cli(rec, device="cuda"):
         before = [last_round(s) for s in net.stats()]
         txs_before = committed_txs()
         stop_rcs, stop_s = net.stop()
+        net.print_tails(stop_rcs)
 
         res["restart_boot_s"] = net.start("run2")
         after_boot = [last_round(s) for s in net.stats()]
@@ -2295,6 +2414,7 @@ def phase_cli(rec, device="cuda"):
         bomber.join(timeout=10)
         logs_after = cli_logs_agree(net.clients)
         final_rcs, final_s = net.stop()
+        net.print_tails(final_rcs)
         failed = net.count_lines(FAILED_PASS)
         commit_failed = net.count_lines("commit failed")
         divergence = net.count_lines("CONSENSUS DIVERGENCE")
@@ -2411,8 +2531,8 @@ def phase_sustained_profile(rec, device="cuda"):
     with synchronised phase timers (each phase's share including its
     device work); pass 7 under the sync debug mode, which must flag
     exactly the engine's own host reads but the pulls (one flag read
-    per frontier round); pass PROFILED_BATCH, a steady pass, under
-    torch.profiler."""
+    per frontier round, one stop check per fame step past the first);
+    pass PROFILED_BATCH, a steady pass, under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2463,17 +2583,18 @@ def phase_sustained_profile(rec, device="cuda"):
          "synced_passes": [timed.start, timed.stop - 1],
          "synced_phase_ms": {k: v / 1e6 for k, v in phase_tot.items()},
          "synced_phase_share": {k: phase_tot.get(k, 0) / denom for k in parts},
-         "sync_debug_flagged": flagged, "frontier_reads": expected,
+         "sync_debug_flagged": flagged, "engine_reads": expected,
          "profiled_pass_phase_ms": {k: v / 1e6 for k, v in eng.phase_ns.items()},
          **profile_summary(prof, wall_s)}
     rec["sustained_profile"] = p
     print(f"sustained synced phase shares (passes {timed.start}-{timed.stop - 1}): "
           + json.dumps({k: round(v, 4) for k, v in p["synced_phase_share"].items()}))
     print(f"sustained pass {PROFILED_BATCH - 1} under the sync debug mode: {flagged} "
-          f"synchronizing operations flagged, {expected} frontier flag reads")
+          f"synchronizing operations flagged, {expected} engine reads (frontier flags "
+          f"and fame stop checks)")
     if flagged != expected:
         raise AssertionError(f"sync debug mode flagged {flagged} host reads, the engine "
-                             f"counts {expected} frontier flag reads")
+                             f"counts {expected} frontier flag and fame stop reads")
     if "device_busy_s" not in p:
         print("sustained profile: the profiler recorded no device activity: not measured")
         return
@@ -2583,7 +2704,7 @@ def kernels_line(rec) -> dict:
              next((r for r in gathered if r["name"] == "node_frontier_probe"
                    and r["mode"] == "tally"), {}),
              by_mode.get("matrix", 0) + by_mode.get("tally", 0),
-             {"shape": "node_frontier_probe tally [4, 4, 4, 1]",
+             {"shape": f"node_frontier_probe tally [{4 * NODE_PROBE_WAYS}, 4, 4, 1]",
               "launches_on": "node (the live 4-node net on the torch engine)",
               "launches_by_mode": {k: by_mode.get(k, 0) for k in ("matrix", "tally")},
               "launches_by_site": engine_path.get("launches_by_site", {}),
@@ -2613,6 +2734,7 @@ def kernels_line(rec) -> dict:
                            default=None),
         "ms": main.get("kernel_ms"), "plain_ms": plain.get("plain_ms"),
         "bound_ms": main.get("bound_ms"), "bound_by": main.get("bound_by"),
+        "lane_chain_ms": main.get("lane_chain_ms"), "team_chain_ms": main.get("team_chain_ms"),
         "library_ms": None, "host_ms": main.get("host_ms"),
         "host_backend": p.get("host_backend"), "shape": "B = 64 signatures",
         "launches_on": "node_core_script (phase node (a), Core(device_verify=True))",
@@ -2659,6 +2781,18 @@ def main() -> int:
               ("sustained_profile", phase_sustained_profile),
               ("northstar_incremental", phase_northstar_incremental),
               ("hashgraph", phase_hashgraph), ("node", phase_node), ("cli", phase_cli)]
+    chosen = sys.argv[1:]
+    if chosen:
+        # A bring-up aid: build, then the named phases in the order given
+        # (a phase may repeat), one JSON line of each run's record. The
+        # kernels line and the final "ok" line belong to the whole run.
+        known = dict(phases)
+        unknown = sorted(set(chosen) - set(known))
+        if unknown:
+            print(f"chip_smoke: unknown phases {unknown}; known: {list(known)}",
+                  file=sys.stderr)
+            return 2
+        phases = [("build", phase_build)] + [(name, known[name]) for name in chosen]
     t_all = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -2671,8 +2805,15 @@ def main() -> int:
             if name == "build":
                 break
         rec.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+        if chosen:
+            print(json.dumps({"phase": name, "seconds": rec["phase_s"][name],
+                              "failed": name in rec["failed"], "record": rec.get(name)},
+                             default=str))
         sys.stdout.flush()
     rec["total_s"] = time.perf_counter() - t_all
+    if chosen:
+        print(smi_line)
+        return 1 if rec["failed"] else 0
 
     if not smi_line:
         rec["failed"].append("nvidia-smi")

@@ -78,6 +78,36 @@ def test_version():
     assert out.stdout.strip() == babble_tpu_torch.__version__
 
 
+DAEMON_TORCH_EXIT = """
+import runpy, sys, threading, torch
+a = torch.randn(1500, 1500)
+running = threading.Event()
+
+def work():
+    while True:
+        running.set()
+        a @ a
+
+threading.Thread(target=work, daemon=True).start()
+running.wait()
+sys.argv = ["babble_tpu_torch.cli", "version"]
+runpy.run_module("babble_tpu_torch.cli", run_name="__main__")
+"""
+
+
+def test_exit_with_a_daemon_thread_in_torch():
+    """The program exits 0 while a daemon thread is inside a torch call
+    (as a node's gossip threads, the engine's stager and device verify
+    may be at SIGTERM): finalizing the interpreter would abort it."""
+    out = subprocess.run([sys.executable, "-c", DAEMON_TORCH_EXIT], capture_output=True,
+                         text=True, timeout=120, env=cli_env())
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "terminate called" not in out.stderr
+    import babble_tpu_torch
+
+    assert out.stdout.strip() == babble_tpu_torch.__version__
+
+
 def test_keygen(tmp_path):
     datadir = str(tmp_path / "keys")
     out = run_cli("keygen", "--datadir", datadir)

@@ -185,3 +185,33 @@ def test_frontier_chunk_matches():
         0, n=n, sm=sm, rc=8)
     for g, w in zip(got, want):
         assert (g.numpy() == np.asarray(w)).all()
+
+
+@pytest.mark.parametrize("ways", [1, 2, 3, 7, 63])
+def test_first_true_settles_every_answer(ways):
+    """The frontier's k2 search finds the first true position of any
+    monotone predicate, or hi where there is none, for every chain
+    length up to 300 and every answer, in search_steps probes; with
+    one way it takes a bisection's ceil(log2 K) + 1."""
+    hi_l, ans_l = zip(*[(h, a) for h in range(301) for a in range(h + 1)])
+    hi, ans = torch.tensor(hi_l), torch.tensor(ans_l)
+    probed = []
+
+    def probe(pos):
+        # an open interval probes below hi; a settled one (lo == hi)
+        # probes hi itself, which first_true masks
+        assert pos.shape == (hi.shape[0], ways) and (pos <= hi[:, None]).all()
+        probed.append(1)
+        return pos >= ans[:, None]
+
+    steps = tf.search_steps(300, ways)
+    got = tf.first_true(probe, hi, steps, ways)
+    assert torch.equal(got, ans) and len(probed) == steps
+    if ways == 1:
+        assert [tf.search_steps(k, 1) for k in (64, 1 << 16)] == [7, 17]
+    assert tf.search_steps(0, ways) == 0 and tf.search_steps(ways, ways) == 1
+
+
+@pytest.mark.parametrize("n,ways", [(4, 4095), (16, 4095), (64, 256), (128, 32), (256, 4), (1024, 1)])
+def test_probe_ways_by_width(n, ways):
+    assert tf.probe_ways(n) == ways

@@ -49,10 +49,12 @@ ALLOWED = {
     # into build/kernels/); the torch engine is the default, with the
     # 250 ms interval floor; --engine_device (default cuda) and the exit
     # when Core refuses the engine or finds no device; --device_verify's
-    # help names the port's kernel; failover off by default (threshold 0).
+    # help names the port's kernel; failover off by default (threshold 0);
+    # the program exits without finalizing the interpreter (daemon threads
+    # in torch's C++ code abort a finalizing process).
     "cli.py": [(8, 8), (62, 62), (72, 81), (110, 110), (144, 145), (179, 179),
                (221, 221), (261, 261), (326, 328), (337, 337), (361, 364),
-               (454, 454), (457, 457)],
+               (454, 454), (457, 457), (474, 474)],
     # The port's package name in the usage line.
     "dummy.py": [(7, 7)],
     # /debug/profile captures with torch.profiler (docstring, capture);

@@ -381,7 +381,7 @@ def test_one_pass_reaches_the_gathered_kernel(monkeypatch):
     rounds = eng._dbg_windows["t_end"] - eng._dbg_windows["t0"]
     probes = calls[("sees_sm", "tally")]
     assert calls[("step", "tally")] == rounds and probes % rounds == 0
-    assert eng.host_syncs == rounds + 1
+    assert eng.host_syncs == rounds + eng._dbg_windows["fame_reads"] + 1
 
 
 def test_memory_stats_prewarm_and_left_out_parts():
@@ -439,3 +439,46 @@ def test_cost_report_matches_jax_shapes():
 
 def test_cost_report_never_raises():
     assert tinc._analyze_cost((), {}, ()) == {"error": "'n'"}
+
+
+def test_torch_calls_per_pass_at_node_width(capsys):
+    """A pass's torch calls, each a release and re-take of the
+    interpreter lock (ROADMAP C1), at a live node's width and presize:
+    n = 4, capacity and k_capacity 65,536, 200-event batches. The
+    frontier's wide probe, fame by depth over the live rows and the
+    chunked round-received sweep keep a pass under 4,000 calls on the
+    CPU (whose B1 plain version adds its own); the bisection and the
+    sweeps over whole windows took 13,565-17,367."""
+    from torch.overrides import TorchFunctionMode
+
+    class Calls(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") != "__get__":  # not an attribute read
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    dag, _ = synthetic_dag(4, 2400, seed=7)
+    eng = tinc.IncrementalEngine(4, device="cpu", capacity=65536, block=512,
+                                 k_capacity=65536)
+    stage, calls = eng._stage_pass, []
+
+    def counted(pp):  # the mode is per thread: count on the staging worker
+        with Calls() as c:
+            stage(pp)
+        calls.append(c.n)
+
+    eng._stage_pass = counted
+    try:
+        for k in range(0, 2400, 200):
+            feed(eng, dag, k, k + 200)
+            eng.run()
+    finally:
+        eng.close()
+    with capsys.disabled():
+        print(f"\ntorch calls per pass (n = 4, node presize, CPU): {calls}")
+    assert len(calls) == 12 and max(calls) < 4000
+    assert eng.last_consensus_round >= 150

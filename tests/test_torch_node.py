@@ -256,3 +256,32 @@ def test_node_watchdog_fails_torch_over_and_net_converges(failed_passes):
     check_gossip(nodes)
     check_blocks(nodes, submitted)
     assert len(victim.proxy.committed_transactions()) > 0
+
+
+@pytest.mark.parametrize("delivered,lost_ok", [
+    ([0, 1, 2], True),   # the tx-less round 3 was never the app's to deliver
+    ([0, 2], True),      # one block with transactions lost: the forwarder race
+    ([0], False),        # two lost is a fault
+])
+def test_delivery_check_leaves_out_blocks_without_transactions(delivered, lost_ok):
+    """delivery_check counts a committed block as lost only if it holds
+    transactions: the graphs store a block for every decided round but
+    hand the app only those with transactions, so a round decided after
+    the last submission is stored and never delivered."""
+    import queue
+    from types import SimpleNamespace
+
+    from babble_tpu_torch.hashgraph.block import Block
+
+    store = InmemStore({"0xAA": 0}, CACHE)
+    blocks = [Block(rr, [b"tx %d" % rr] if rr < 3 else None) for rr in range(4)]
+    for blk in blocks:
+        store.set_block(blk)
+    node = SimpleNamespace(
+        core=SimpleNamespace(hg=SimpleNamespace(store=store)),
+        proxy=SimpleNamespace(blocks=[(rr, blocks[rr].marshal()) for rr in delivered]),
+        _work=queue.Queue(), commit_ch=queue.Queue())
+    own = {blk.round_received: blk.marshal() for blk in blocks}
+    ok, counts = delivery_check(node, own)
+    assert ok is lost_ok
+    assert counts["lost"] == [rr for rr in range(3) if rr not in delivered]

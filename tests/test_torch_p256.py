@@ -10,7 +10,14 @@ Jacobian limbs and verdicts are integers).
   d = 1 degeneracies of tests/test_p256.py (one JAX compile, ~20 s:
   keep every JAX batch at 8);
 - `verify_batch(..., device="cpu")` against the pure fallback's
-  verdicts on the whole corpus, the degeneracies and a one-lane batch;
+  verdicts on the whole corpus, the degeneracies and a one-lane batch,
+  and its `parts` timing;
+- the projective verdict (`_verdict`: X == r Z^2, or (r + N) Z^2, mod
+  P) against the affine one (x = X Z^-2 mod P, x mod N == r) on
+  synthetic points, x in [N, P) and Z = 0 included;
+- the kernel source's constant tables (csrc/p256.cu) against P, the
+  Solinas rows of the plain version and 5P, and chip_smoke's count of
+  the kernel's instructions a signature on a listing of its shape;
 - the wrapper on a CUDA tensor with no GPU raises and never takes the
   plain version; on a CPU tensor it takes the plain version without a
   launch.
@@ -22,6 +29,9 @@ kernel itself is held against `dual_window_ref` on the card by
 chip_smoke.py."""
 
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -154,6 +164,19 @@ def test_verify_batch_matches_host_backends():
     assert p256.verify_batch([pub], [d], [(r, s + 1)], device="cpu") == [False]
 
 
+def test_verify_batch_parts():
+    """`parts` takes the wall seconds of each part of the call and leaves
+    the verdicts as they are; with no live lane nothing is timed."""
+    pubs, digests, sigs, expected = corpus()
+    parts = {}
+    assert p256.verify_batch(pubs, digests, sigs, device="cpu", parts=parts) == expected
+    assert list(parts) == ["prelude", "upload", "kernel", "download", "epilogue"]
+    assert all(v >= 0 for v in parts.values())
+    none = {}
+    p256.verify_batch(pubs[6:9], digests[6:9], sigs[6:9], device="cpu", parts=none)
+    assert none == {}
+
+
 def test_verify_batch_without_live_lanes():
     """Nothing reaches the ladder when no lane passes the checks."""
     pubs, digests, sigs, expected = corpus()
@@ -231,3 +254,113 @@ def test_wrapper_rejects(case):
     with pytest.raises(exc):
         p256.dual_window(*args)
     assert p256.dual_window.launches == before
+
+
+def _affine_verdict(X, Z, r):
+    return Z != 0 and X * pow(Z, -2, P) % P % N == r
+
+
+def _verdict_cases(case):
+    """(X, Z, r) triples of one kind, X = x Z^2 for the affine x."""
+    rng = np.random.default_rng(11)
+
+    def below(hi):
+        return 1 + int.from_bytes(rng.bytes(40), "big") % (hi - 1)
+
+    def point(x, z):
+        return x * z * z % P, z
+
+    out = []
+    if case == "x_below_n":
+        for x in [below(N) for _ in range(6)] + [1, N - 1, P - N - 1, P - N]:
+            X, Z = point(x, below(P))
+            out += [(X, Z, x), (X, Z, x - 1 or 2), (X, Z, (x + 1) % N or 1)]
+    elif case == "x_at_least_n":  # r = x - N: no real signature reaches it
+        for x in [N + below(P - N) for _ in range(6)] + [N, N + 1, P - 1]:
+            X, Z = point(x, below(P))
+            out += [(X, Z, x - N), (X, Z, x - N + 1), (X, Z, (x - N - 1) % N or 2)]
+    elif case == "z_zero":
+        out = [(X, 0, r) for X in (0, 1, below(P)) for r in (1, below(N), N - 1)]
+    elif case == "z_one":
+        for x in [below(P) for _ in range(6)] + [N, P - 1, 1]:
+            out += [(x, 1, x % N or 1), (x, 1, (x + 1) % N or 1)]
+    else:  # random points and r
+        for _ in range(12):
+            X, Z = below(P), below(P)
+            x = X * pow(Z, -2, P) % P
+            out += [(X, Z, x % N or 1), (X, Z, below(N))]
+    return out
+
+
+@pytest.mark.parametrize("case", ["x_below_n", "x_at_least_n", "z_zero", "z_one", "random"])
+def test_projective_verdict_matches_affine(case):
+    """verify_batch's epilogue (no inversion) gives the affine verdict on
+    every triple; each kind but Z = 0 has both outcomes."""
+    cases = _verdict_cases(case)
+    got = [p256._verdict(X, Z, r) for X, Z, r in cases]
+    assert got == [_affine_verdict(X, Z, r) for X, Z, r in cases]
+    assert (True in got) == (case != "z_zero") and False in got
+
+
+def test_kernel_constant_tables():
+    """The kernel's tables: P, F = 2^256 - P, the Solinas rows (columns
+    8-15 of the plain version's _SOLINAS) and 5P with every word in
+    [2^34, 2^34 + 2^32), which keeps each row non-negative."""
+    src = (Path(p256.__file__).resolve().parent.parent / "csrc" / "p256.cu").read_text()
+
+    def table(name):
+        body = re.search(r"__constant__ \w+ " + name + r"\[[^=]*=\s*\{(.*?)\};", src,
+                         re.S).group(1)
+        return [int(v, 0) for v in re.findall(r"-?0x[0-9A-Fa-f]+|-?\d+", body.replace("ull", "")
+                                                                          .replace("u", ""))]
+
+    def value(words):
+        return sum(w << (32 * i) for i, w in enumerate(words))
+
+    assert value(table("kP")) == P
+    assert value(table("kF")) == (1 << 256) - P
+    rows = np.array(table("kSolinas")).reshape(8, 8)
+    assert (rows == p256._SOLINAS[:, 8:]).all() and (p256._SOLINAS[:, :8] == np.eye(8)).all()
+    five = table("kFiveP")
+    assert value(five) == 5 * P
+    assert all(1 << 34 <= w < (1 << 34) + (1 << 32) for w in five)
+    # A product's columns are below 2^32 + 16 when the rows are formed.
+    assert all(w + int(rows[j][rows[j] < 0].sum()) * ((1 << 32) + 15) >= 0
+               for j, w in enumerate(five))
+
+
+FAKE_SASS = """
+        code for sm_90a
+                Function : _ZN12_GLOBAL__N_123p256_dual_window_kernelEPKiS1_S1_S1_PiS2_S2_i
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                 /* 0x0000 */
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;          /* 0x0000 */
+        /*0020*/                   IADD3 R2, R2, 0x1, RZ ;                /* 0x0000 */
+        /*0030*/                   IADD3 R3, R3, 0x1, RZ ;                /* 0x0000 */
+        /*0040*/              @!P0 BRA 0x90 ;                             /* 0x0000 */
+        /*0050*/                   IMAD R4, R4, R4, RZ ;                  /* 0x0000 */
+        /*0060*/              @!P1 BRA 0x80 ;                             /* 0x0000 */
+        /*0070*/                   VOTE.ANY R5, PT, P2 ;                  /* 0x0000 */
+        /*0080*/                   IMAD R4, R4, R4, RZ ;                  /* 0x0000 */
+        /*0090*/                   VOTE.ANY R6, PT, P3 ;                  /* 0x0000 */
+        /*00a0*/              @!P0 BRA 0xd0 ;                             /* 0x0000 */
+        /*00b0*/                   IMAD R7, R7, R7, RZ ;                  /* 0x0000 */
+        /*00c0*/                   IMAD R7, R7, R7, RZ ;                  /* 0x0000 */
+        /*00d0*/               @P0 BRA 0x30 ;                             /* 0x0000 */
+        /*00e0*/               @P1 BRA 0x20 ;                             /* 0x0000 */
+        /*00f0*/                   EXIT ;                                 /* 0x0000 */
+"""
+
+
+def test_team_chain_from_sass():
+    """chip_smoke's chain bound of the team kernel on a listing of the
+    kernel's shape: the add (3 instructions, its VOTE fix-up not
+    counted) 128 times, the doubling (2) 256 times, the step loop's own
+    5 instructions 384 times and the nibble loop's 2 64 times."""
+    from chip_smoke import SM_CLOCK_HZ, p256_team_chain
+
+    got = p256_team_chain("other kernels\n        Function : _Z5otherv\n" + FAKE_SASS)
+    want = 128 * 3 + 256 * 2 + 384 * 5 + 64 * 2
+    assert {k: got[k] for k in ("add", "double", "step", "nibble", "per_signature")} == {
+        "add": 3, "double": 2, "step": 5, "nibble": 2, "per_signature": want}
+    assert got["kernel_static"] == 16 and got["ms"] == want / SM_CLOCK_HZ * 1e3

@@ -268,7 +268,9 @@ def test_compute_rounds_is_one_tally_launch_per_level(monkeypatch):
 
 def test_frontier_probe_and_skip_correction_launches(monkeypatch):
     """Each frontier round: one TALLY launch per probe (sees_sm) and one
-    for the skip correction (the round step itself)."""
+    for the skip correction (the round step itself). At n = 16 a probe
+    may test 4,095 positions of every chain, so K = 46 takes one probe
+    of 46 positions where a bisection took seven."""
     ref = reference("syn16")
     d = ref["port"]
     n, rc = d.n, 8
@@ -280,7 +282,8 @@ def test_frontier_probe_and_skip_correction_launches(monkeypatch):
                       T(d.chain), torch.full((n,), -1, dtype=torch.int32),
                       torch.zeros(n, dtype=torch.int32), 0, n=n,
                       sm=d.super_majority, rc=rc)
-    probes = int(np.ceil(np.log2(chain_la.shape[1]))) + 1
+    probes = tf.search_steps(chain_la.shape[1], chain_la.shape[1])
+    assert (chain_la.shape[1], probes) == (46, 1)
     assert set(calls) == {("sees_sm", "tally"), ("step", "tally")}
     assert calls.count(("step", "tally")) == rc
     assert calls.count(("sees_sm", "tally")) == rc * probes
