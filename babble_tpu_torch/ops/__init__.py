@@ -1,12 +1,12 @@
 """The consensus pipeline on PyTorch (counterpart of babble_tpu/ops):
 DAG tensors, the per-stage kernels, block closure, round frontier, the
-one-shot pipeline entry point and its host finish (`run_consensus_batch`
+one-shot pipeline entry points and their host finish (`run_consensus_batch`
 over signed events), and the live node's incremental engine."""
 
 from .dag import DagTensors, build_dag, dag_from_arrays, synthetic_dag
 from .engine import BatchConsensusResult, consensus_order, run_consensus_batch
 from .incremental import IncrementalEngine, PendingPass, RunDelta
-from .pipeline import run_pipeline
+from .pipeline import consensus_pipeline, run_pipeline
 
 __all__ = [
     "DagTensors",
@@ -19,5 +19,6 @@ __all__ = [
     "IncrementalEngine",
     "PendingPass",
     "RunDelta",
+    "consensus_pipeline",
     "run_pipeline",
 ]

@@ -264,13 +264,18 @@ def rounds_from_frontier(frontier, creator, index, self_parent, rho_min, *, n):
 
 
 def compute_frontier(la, rbase, fd, chain, chain_len, root_round,
-                     *, n: int, sm: int, rc: int = 64,
+                     *, n: int, sm: int, rc: int = 64, view_chain_len=None,
                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Host loop: sweep rounds in chunks of rc until the frontier
     passes every chain's end (one host read per chunk). root_round is
-    host numpy. Returns (wt[R, n] absolute-round-indexed,
-    frontier[R', n], rho_min), the tables on la's device."""
+    host numpy. `view_chain_len` [n] restricts to an ancestry-closed
+    prefix view (per-peer simulation): coordinates from the full DAG
+    stay exact for any closed view, so only the chain lengths change.
+    Returns (wt[R, n] absolute-round-indexed, frontier[R', n],
+    rho_min), the tables on la's device."""
     dev = la.device
+    chain_len_eff = chain_len if view_chain_len is None else torch.as_tensor(
+        view_chain_len, dtype=I32).to(dev)
     chain_la, chain_rbase = build_chain_tables(la, rbase, chain, n=n)
     rho_min = int(np.min(root_round)) + 1
 
@@ -280,7 +285,7 @@ def compute_frontier(la, rbase, fd, chain, chain_len, root_round,
     rho0 = rho_min
     while True:
         wt_o, fr_o, act, wt_prev, fr_prev = frontier_chunk(
-            chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
+            chain_la, chain_rbase, chain_len_eff, la, fd, rbase, chain,
             wt_prev, fr_prev, rho0, n=n, sm=sm, rc=rc)
         wt_rows.append(wt_o)
         fr_rows.append(fr_o)
@@ -289,7 +294,7 @@ def compute_frontier(la, rbase, fd, chain, chain_len, root_round,
         rho0 += rc
     wt_rel = torch.cat(wt_rows, 0)
     fr_rel = torch.cat(fr_rows, 0)
-    active = (fr_rel < chain_len[None, :]).any(1).cpu().numpy()
+    active = (fr_rel < chain_len_eff[None, :]).any(1).cpu().numpy()
     # highest round with any event = last active row
     n_rounds = int(np.nonzero(active)[0][-1]) + 1 if active.any() else 0
     wt_rel = wt_rel[:n_rounds]

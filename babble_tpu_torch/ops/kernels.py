@@ -197,7 +197,7 @@ def compute_first_descendants(la, creator, index, chain, chain_len, *, n):
 
 
 def compute_rounds(self_parent, other_parent, creator, index, la, fd, levels,
-                   root_round, *, n, sm, r):
+                   root_round, valid_mask=None, *, n, sm, r):
     """Round numbers, witness flags, and the witness table — reference
     DivideRounds / Round / RoundInc / Witness (hashgraph.go:211-339,
     616-646), swept per DAG level.
@@ -208,8 +208,19 @@ def compute_rounds(self_parent, other_parent, creator, index, la, fd, levels,
     launch per level (hopper_kernels.strongly_see_gathered), each row
     reading its parent round's row of the working witness table.
 
+    `valid_mask` [E+1] bool restricts consensus to an ancestry-closed
+    subgraph (a simulated peer's view, ops/sim.py): coordinates from the
+    full DAG stay exact for any closed view, so the witness-table write
+    is the only place the mask enters; rounds and witness flags are
+    still computed for every event. A [V, E+1] mask runs V views at
+    once, with results [V, E], [V, E] and [V, r, n]: the views' working
+    tables are stacked into one [V*(r+1), n] table and each level is
+    still one launch, its rows view-major (row v*W + lane reads table
+    row v*(r+1) + parent round), so a 64-row tile names as few distinct
+    witness rows as a single view's.
+
     Returns (rounds[E], witness[E] bool, wt[r, n] event ids, -1 empty).
-    Row r of the working table is the scatter dump: every lane that
+    Row r of each working table is the scatter dump: every lane that
     does not write a witness writes -1 there, so the duplicate indices
     agree on the value."""
     # imported here: hopper_kernels imports this module's plain versions
@@ -217,43 +228,53 @@ def compute_rounds(self_parent, other_parent, creator, index, la, fd, levels,
 
     e = la.shape[0]
     dev = la.device
+    views = valid_mask is not None and valid_mask.dim() == 2
+    masks = None if valid_mask is None else valid_mask.reshape(-1, e + 1)  # [V, E+1]
+    v_n = 1 if masks is None else masks.shape[0]
     la_p = torch.cat([la, torch.full((1, n), -1, dtype=I32, device=dev)], 0)
-    rounds = torch.full((e + 1,), -1, dtype=I32, device=dev)
-    wit = torch.zeros((e + 1,), dtype=torch.bool, device=dev)
-    wt = torch.full((r + 1, n), -1, dtype=I32, device=dev)
+    rounds = torch.full((v_n, e + 1), -1, dtype=I32, device=dev)
+    wit = torch.zeros((v_n, e + 1), dtype=torch.bool, device=dev)
+    wt = torch.full((v_n, r + 1, n), -1, dtype=I32, device=dev)
+    w_tab = wt.view(v_n * (r + 1), n)
+    view = torch.arange(v_n, dtype=I32, device=dev)[:, None]  # [V, 1]
     valid_all = levels >= 0
     sids_all = torch.where(valid_all, levels, e)
     sp_all = self_parent[sids_all]
     op_all = other_parent[sids_all]
     cr_all = creator[sids_all]
+    xs_all = sids_all.repeat(1, v_n)  # [L, V*W]: each level's ids once per view
 
     for l in range(levels.shape[0]):
         valid, sids = valid_all[l], sids_all[l]
         sp, op, cr = sp_all[l], op_all[l], cr_all[l]
-        rnd_sp_raw = torch.where(sp >= 0, rounds[torch.where(sp >= 0, sp, e)], -1)
+        rnd_sp_raw = torch.where(sp >= 0, rounds[:, torch.where(sp >= 0, sp, e)], -1)
         # parentRound with Root fallback (hashgraph.go:211-262): a
         # missing parent means the base Root (X = Y = ""), whose round
         # comes from root_round.
         sp_round = torch.where(sp >= 0, rnd_sp_raw, root_round[cr])
         op_round = torch.where(
-            op >= 0, rounds[torch.where(op >= 0, op, e)], root_round[cr])
+            op >= 0, rounds[:, torch.where(op >= 0, op, e)], root_round[cr])
         use_op = sp_round < op_round
-        pr = torch.where(use_op, op_round, sp_round)
+        pr = torch.where(use_op, op_round, sp_round)  # [V, W]
         pr_root = torch.where(use_op, op < 0, sp < 0)
         # roundInc: count parent-round witnesses strongly seen.
+        wrow = view * (r + 1) + torch.clamp(pr, 0, r - 1)
         ss_cnt = strongly_see_gathered(
-            la_p, sids, fd, wt, torch.clamp(pr, 0, r - 1), sm, "tally")
+            la_p, xs_all[l], fd, w_tab, wrow.view(-1), sm, "tally").view(v_n, -1)
         inc = pr_root | (ss_cnt >= sm)
         r_new = pr + inc.to(I32)
         # witness: sits on the Root, or exceeds the self-parent's round
         # (hashgraph.go:265-282).
         w_new = ((sp < 0) & (op < 0)) | (r_new > rnd_sp_raw)
-        rounds[sids] = torch.where(valid, r_new, -1)
-        wit[sids] = valid & w_new
+        rounds[:, sids] = torch.where(valid, r_new, -1)
+        wit[:, sids] = valid & w_new
         upd = valid & w_new
+        if masks is not None:
+            upd = upd & masks[:, sids]
         r_idx = torch.where(upd, torch.clamp(r_new, 0, r - 1), r)
-        wt[r_idx, cr] = torch.where(upd, sids, -1)
-    return rounds[:e], wit[:e], wt[:r]
+        wt[view, r_idx, cr] = torch.where(upd, sids, -1)
+    out = rounds[:, :e], wit[:, :e], wt[:, :r]
+    return out if views else tuple(x[0] for x in out)
 
 
 def decide_fame(wt, la, fd, index, coin, *, n, sm, r, reads=None):
@@ -286,42 +307,58 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r, reads=None):
     or a row view (witness_rows): the launch reads the window's witness
     rows either way.
 
+    A witness table with a leading view axis, wt [V, r, n] (ops/sim.py),
+    gives famous [V, r, n]: the V*r slot rows of all views sweep
+    together, each voting within its own view, one launch per chunk of
+    voting rounds covers every view, and the sweep stops when no view
+    has an undecided slot with a round left.
+
     Returns famous[r, n] trilean (0 undefined / 1 true / 2 false)."""
     # imported here: hopper_kernels imports this module's plain versions
     from .hopper_kernels import strongly_see_gathered
 
     dev = la.device
-    famous = torch.zeros((r, n), dtype=I32, device=dev)
+    wt_shape = wt.shape
+    v_n = wt.shape[0] if wt.dim() == 3 else 1
+    rows_n = v_n * r  # slot rows: round rx of view v is row v*r + rx
+    famous = torch.zeros((rows_n, n), dtype=I32, device=dev)
     if r < 2:
-        return famous
+        return famous.view(wt_shape)
+    wt = wt.reshape(rows_n, n)
     wt_valid = wt >= 0
     wt_safe = torch.where(wt_valid, wt, 0)
-    idx_x = torch.where(wt_valid, index[wt_safe], -1)  # [r, n]
-    per_launch = chunk_width(r - 1, n * n)  # voting rounds per launch
+    idx_x = torch.where(wt_valid, index[wt_safe], -1)  # [V*r, n]
+    per_launch = chunk_width(r - 1, v_n * n * n)  # voting rounds per launch
     f_tab, w_tab = witness_rows(fd, wt)
-    # ss[q][y, x]: round q+1's witness y strongly sees round q's witness
-    # x (empty slots: y reads row 0 and is gated by y_valid below; x is
-    # masked by the kernel)
+    view = torch.arange(v_n, dtype=I32, device=dev)[:, None]  # [V, 1]
+    # ss[v, q][y, x]: view v's round q+1 witness y strongly sees its
+    # round q witness x (empty slots: y reads row 0 and is gated by
+    # y_valid below; x is masked by the kernel); one launch per chunk of
+    # voting rounds for every view, rows view-major
     blocks = []
     for j in range(1, r, per_launch):
         hi = min(j + per_launch, r)
-        xs = wt_safe[j:hi].reshape(-1)
-        wrow = torch.arange(j - 1, hi - 1, dtype=I32, device=dev).repeat_interleave(n)
+        xs = wt_safe.view(v_n, r, n)[:, j:hi].reshape(-1)
+        wrow = (view * r + torch.arange(j - 1, hi - 1, dtype=I32, device=dev)).view(
+            -1).repeat_interleave(n)
         blocks.append(strongly_see_gathered(la, xs, f_tab, w_tab, wrow, sm, "matrix").view(
-            torch.bool).view(hi - j, n, n))
-    ss = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+            torch.bool).view(v_n, hi - j, n, n))
+    ss = (blocks[0] if len(blocks) == 1 else torch.cat(blocks, 1)).view(-1, n, n)
 
-    rows = torch.arange(r, device=dev)
-    coin_w = coin[wt_safe].to(torch.bool)  # [r, n]
+    slot = torch.arange(rows_n, device=dev)
+    rx = slot % r  # each slot row's round
+    last = slot - rx + (r - 1)  # the slot row of its view's last round
+    ss_off = slot // r + 1  # ss row of round j of view v: v*(r-1) + j-1
+    coin_w = coin[wt_safe].to(torch.bool)  # [V*r, n]
     for d in range(1, r):
-        # row rx's voters: round rx+d's witnesses y
-        jr = torch.clamp(rows + d, max=r - 1)
-        y_valid = wt_valid[jr] & (rows + d < r)[:, None]  # [r, n(y)]
-        active = y_valid[:, :, None] & wt_valid[:, None, :]  # [r, n(y), n(cx)]
+        # row rx's voters: round rx+d's witnesses y of the same view
+        jr = torch.clamp(slot + d, max=last)
+        y_valid = wt_valid[jr] & (rx + d < r)[:, None]  # [V*r, n(y)]
+        active = y_valid[:, :, None] & wt_valid[:, None, :]  # [V*r, n(y), n(cx)]
         if d == 1:
             vote = (la[wt_safe[jr]] >= idx_x[:, None, :]) & active
         else:
-            ssd = ss[jr - 1]  # [r, n(y), n(z)]
+            ssd = ss[jr - ss_off]  # [V*r, n(y), n(z)]
             # 0/1 float32 product: tallies are <= n < 2^24, exact in
             # fp32 with TF32 off (devices.py).
             yays = torch.bmm(ssd.to(torch.float32), vote.to(torch.float32)).to(I32)
@@ -341,16 +378,16 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r, reads=None):
             else:  # a coin round flips the coin where the tally is weak
                 vote = torch.where(strong, v, coin_w[jr][:, :, None]) & active
             # another step only while an undecided slot has a round left
-            left = (rows + d + 1 < r)[:, None] & wt_valid & (famous == FAME_UNDEFINED)
+            left = (rx + d + 1 < r)[:, None] & wt_valid & (famous == FAME_UNDEFINED)
             if reads is not None:
                 reads.append(1)
             if not bool(left.any()):
                 break
-    return famous
+    return famous.view(wt_shape)
 
 
 def decide_round_received(rounds, wt, famous, la, fd, creator, index,
-                          chain_rank, *, n, r):
+                          chain_rank, valid_mask=None, *, n, r):
     """Round-received + median consensus timestamps — reference
     DecideRoundReceived / MedianTimestamp / OldestSelfAncestorToSee
     (hashgraph.go:753-799,860-868,141-167).
@@ -363,46 +400,71 @@ def decide_round_received(rounds, wt, famous, la, fd, creator, index,
     the zero time when that descendant doesn't reach the witness;
     rank -1 plays that role).
 
+    `valid_mask` [E+1] bool (a view, see compute_rounds) leaves the
+    events outside the view unreceived. Leading view axes on rounds
+    [V, E], wt and famous [V, r, n] and valid_mask [V, E+1] run V views
+    at once, with results [V, E]. Both phases go over the events in
+    chunks, so their [V, n, chunk] and [V, chunk, n] tensors stay under
+    the broadcast budget.
+
     Returns (round_received[E] int32, -1 undecided;
              cts_rank[E] int32 timestamp rank, -1 = zero time)."""
+    views = wt.dim() == 3
+    if not views:
+        rounds, wt, famous = rounds[None], wt[None], famous[None]
+        if valid_mask is not None:
+            valid_mask = valid_mask[None]
     dev = la.device
-    e = rounds.shape[0]
+    v_n, e = rounds.shape
     k = chain_rank.shape[1]
     wt_valid = wt >= 0
     wt_safe = torch.where(wt_valid, wt, 0)
-    has_undec = ((famous == FAME_UNDEFINED) & wt_valid).any(1)  # [r]
+    has_undec = ((famous == FAME_UNDEFINED) & wt_valid).any(2)  # [V, r]
     rows = torch.arange(r, dtype=I32, device=dev)
-    min_undec = torch.where(has_undec, rows, r).min()
-    fmask = (famous == FAME_TRUE) & wt_valid  # [r, n]
-    fcnt = fmask.sum(1, dtype=I32)
-    idx_w = torch.where(wt_valid, index[wt_safe], -1)  # [r, n]
+    min_undec = torch.where(has_undec, rows, r).min(1).values  # [V]
+    fmask = (famous == FAME_TRUE) & wt_valid  # [V, r, n]
+    fcnt = fmask.sum(2, dtype=I32)
+    idx_w = torch.where(wt_valid, index[wt_safe], -1)  # [V, r, n]
     creator_e = creator[:e]
     index_e = index[:e]
+    view = torch.arange(v_n, device=dev)[:, None]  # [V, 1]
+    ec = chunk_width(e, v_n * n, _bcast_budget(dev))
+    chunks = [slice(x0, x0 + ec) for x0 in
+              (_clamped(g, ec, e) for g in range(-(-e // ec)))]
 
-    # Phase 1: first qualifying round per event.
-    rr = torch.full((e,), -1, dtype=I32, device=dev)
+    # Phase 1: first qualifying round per event. The final chunk may
+    # overlap the one before it; an event received at i keeps i.
+    rr = torch.full((v_n, e), -1, dtype=I32, device=dev)
     for i in range(r):
-        eligible = ~has_undec[i] & (min_undec > i)
-        la_w = la[wt_safe[i]]  # [n(w), n]
-        see_wx = la_w[:, creator_e] >= index_e[None, :]  # [n(w), E]
-        s_cnt = (see_wx & fmask[i][:, None]).sum(0, dtype=I32)
-        ok = eligible & (s_cnt > fcnt[i] // 2) & (i > rounds) & (rr < 0)
-        rr = torch.where(ok, i, rr)
+        eligible = (~has_undec[:, i] & (min_undec > i))[:, None]  # [V, 1]
+        la_w = la[wt_safe[:, i]]  # [V, n(w), n]
+        need = (fcnt[:, i] // 2)[:, None]
+        for sl in chunks:
+            see_wx = la_w[:, :, creator_e[sl]] >= index_e[sl]  # [V, n(w), chunk]
+            s_cnt = (see_wx & fmask[:, i, :, None]).sum(1, dtype=I32)
+            ok = eligible & (s_cnt > need) & (i > rounds[:, sl]) & (rr[:, sl] < 0)
+            if valid_mask is not None:
+                ok = ok & valid_mask[:, sl]
+            rr[:, sl] = torch.where(ok, i, rr[:, sl])
 
     # Phase 2: medians against each event's own receiving round.
-    rr_safe = torch.clamp(rr, 0, r - 1)
-    w_sel = wt_safe[rr_safe]  # [E, n] witness ids of the receiving round
-    fm_sel = fmask[rr_safe]  # [E, n]
-    idxw_sel = idx_w[rr_safe]  # [E, n]
-    see_sel = la[w_sel, creator_e[:, None]] >= index_e[:, None]  # [E, n]
-    s_mask = see_sel & fm_sel
-    s_cnt = s_mask.sum(1, dtype=I32)
-    valid_t = fd <= idxw_sel  # the first descendant reaches the witness
+    cts = torch.empty((v_n, e), dtype=I32, device=dev)
     cols = torch.arange(n, device=dev)[None, :]
-    ts_fd = chain_rank[cols, torch.clamp(fd, 0, k - 1)]  # [E, n]
-    tsv = torch.where(valid_t, ts_fd, ZERO_TS_RANK)
-    tvals = torch.where(s_mask, tsv, INT32_MAX)
-    sorted_t = torch.sort(tvals, dim=1).values
-    med = torch.gather(sorted_t, 1, (s_cnt // 2).to(torch.int64)[:, None])[:, 0]
-    cts = torch.where(rr >= 0, med, ZERO_TS_RANK)
-    return rr, cts
+    for sl in chunks:
+        rr_g = rr[:, sl]
+        rr_safe = torch.clamp(rr_g, 0, r - 1)
+        w_sel = wt_safe[view, rr_safe]  # [V, chunk, n] witnesses of the receiving round
+        fm_sel = fmask[view, rr_safe]
+        idxw_sel = idx_w[view, rr_safe]
+        see_sel = la[w_sel, creator_e[sl][None, :, None]] >= index_e[sl][None, :, None]
+        s_mask = see_sel & fm_sel
+        s_cnt = s_mask.sum(2, dtype=I32)
+        fd_g = fd[sl]
+        valid_t = fd_g <= idxw_sel  # the first descendant reaches the witness
+        ts_fd = chain_rank[cols, torch.clamp(fd_g, 0, k - 1)]  # [chunk, n]
+        tsv = torch.where(valid_t, ts_fd, ZERO_TS_RANK)
+        tvals = torch.where(s_mask, tsv, INT32_MAX)
+        sorted_t = torch.sort(tvals, dim=2).values
+        med = torch.gather(sorted_t, 2, (s_cnt // 2).to(torch.int64)[..., None])[..., 0]
+        cts[:, sl] = torch.where(rr_g >= 0, med, ZERO_TS_RANK)
+    return (rr, cts) if views else (rr[0], cts[0])

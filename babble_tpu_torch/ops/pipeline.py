@@ -30,7 +30,9 @@ def _to_device(dag, dev):
             for k in _DEVICE_FIELDS}
 
 
-def _coordinates_and_rounds(t, *, n, sm, r):
+def _coordinates_and_rounds(t, valid_mask=None, *, n, sm, r):
+    """Coordinates and the rounds stage; `valid_mask` [E+1] or [V, E+1]
+    (kernels.compute_rounds) restricts the witness tables to views."""
     la = kernels.compute_last_ancestors(
         t["self_parent"], t["other_parent"], t["creator"], t["index"],
         t["levels"], n=n)
@@ -38,17 +40,38 @@ def _coordinates_and_rounds(t, *, n, sm, r):
         la, t["creator"], t["index"], t["chain"], t["chain_len"], n=n)
     rounds, wit, wt = kernels.compute_rounds(
         t["self_parent"], t["other_parent"], t["creator"], t["index"], la, fd,
-        t["levels"], t["root_round"], n=n, sm=sm, r=r)
+        t["levels"], t["root_round"], valid_mask, n=n, sm=sm, r=r)
     return la, fd, rounds, wit, wt
 
 
-def _fame_and_order(wt, la, fd, rounds, t, *, n, sm, r):
+def _fame_and_order(wt, la, fd, rounds, t, valid_mask=None, *, n, sm, r):
     famous = kernels.decide_fame(wt, la, fd, t["index"], t["coin"],
                                  n=n, sm=sm, r=r)
     rr, cts = kernels.decide_round_received(
         rounds, wt, famous, la, fd, t["creator"], t["index"], t["chain_rank"],
-        n=n, r=r)
+        valid_mask, n=n, r=r)
     return famous, rr, cts
+
+
+def consensus_pipeline(self_parent, other_parent, creator, index, coin, levels,
+                       root_round, chain, chain_len, chain_rank, valid_mask=None,
+                       *, n, sm, r, device=None):
+    """The wavefront stages at the static round bound `r`, from per-event
+    and per-chain arrays (numpy or tensors) to the six outputs (rounds,
+    witness, wt, famous, rr, cts) on `device` (CUDA unless the caller
+    names another). `valid_mask` [E+1] bool restricts consensus to an
+    ancestry-closed view; a [V, E+1] mask runs V views at once over one
+    set of coordinates, every output with a leading V axis."""
+    dev = resolve_device(device)
+    arrays = dict(self_parent=self_parent, other_parent=other_parent, creator=creator,
+                  index=index, coin=coin, levels=levels, root_round=root_round,
+                  chain=chain, chain_len=chain_len, chain_rank=chain_rank)
+    t = {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
+    if valid_mask is not None:
+        valid_mask = torch.as_tensor(valid_mask, dtype=torch.bool).to(dev)
+    la, fd, rounds, wit, wt = _coordinates_and_rounds(t, valid_mask, n=n, sm=sm, r=r)
+    famous, rr, cts = _fame_and_order(wt, la, fd, rounds, t, valid_mask, n=n, sm=sm, r=r)
+    return rounds, wit, wt, famous, rr, cts
 
 
 def _round_bucket(max_round: int, bound: int) -> int:
@@ -70,22 +93,29 @@ def tight_round_bucket(rounds, bound: int) -> int:
 
 
 def pad_famous(famous_small, bound: int, n: int):
-    """Restore the [bound, n] famous-table contract: rounds beyond the
-    tight bucket have no witnesses and stay UNDEFINED (== 0)."""
-    famous = torch.zeros((bound, n), dtype=I32, device=famous_small.device)
-    famous[: famous_small.shape[0]] = famous_small
+    """Restore the [bound, n] famous-table contract ([V, bound, n] with a
+    view axis): rounds beyond the tight bucket have no witnesses and
+    stay UNDEFINED (== 0)."""
+    lead = famous_small.shape[:-2]
+    famous = torch.zeros((*lead, bound, n), dtype=I32, device=famous_small.device)
+    famous[..., : famous_small.shape[-2], :] = famous_small
     return famous
 
 
-def run_pipeline_wavefront(dag, device=None):
-    """The depth-sequential engine (one step per DAG level)."""
+def run_pipeline_wavefront(dag, device=None, valid_mask=None):
+    """The depth-sequential engine (one step per DAG level). A bool
+    `valid_mask` on the device, [E+1] or [V, E+1], restricts consensus
+    to ancestry-closed views (kernels.compute_rounds; ops/sim.py's
+    factored per-view pipeline), the round bucket taken over all views."""
     dev = resolve_device(device)
     t = _to_device(dag, dev)
     n, sm, r_bound = dag.n, dag.super_majority, dag.max_rounds
-    la, fd, rounds, wit, wt = _coordinates_and_rounds(t, n=n, sm=sm, r=r_bound)
+    la, fd, rounds, wit, wt = _coordinates_and_rounds(
+        t, valid_mask, n=n, sm=sm, r=r_bound)
     r_small = tight_round_bucket(rounds, r_bound)
     famous_small, rr, cts = _fame_and_order(
-        wt[:r_small].contiguous(), la, fd, rounds, t, n=n, sm=sm, r=r_small)
+        wt[..., :r_small, :].contiguous(), la, fd, rounds, t, valid_mask,
+        n=n, sm=sm, r=r_small)
     return rounds, wit, wt, pad_famous(famous_small, r_bound, n), rr, cts
 
 

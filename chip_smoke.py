@@ -23,7 +23,9 @@ line is not printed):
               INT32_MAX lanes; strongly_see_gathered in both modes at
               the main path's shapes (GATHERED_SHAPES: fame's batch,
               the frontier probe, a north-star level with mixed witness
-              rows, a ragged case); kernel and plain times and bounds;
+              rows, a ragged case, the simulator's levels and fame over
+              stacked per-view tables); kernel and plain times and
+              bounds;
 4. p256     — the P-256 ladder of device ECDSA verify: the team
               kernel's own chain bound from its SASS; the kernel
               (csrc/p256.cu) against its plain PyTorch version on the
@@ -56,7 +58,20 @@ line is not printed):
 9. northstar — synthetic_dag(1024, 100_000, seed=2) once with the
               default engine: time, decided count (44,770), launches
               by site;
-10. sustained — the live node's incremental engine (IncrementalEngine,
+10. sim     — the batched view simulator (ops/sim.py) at BASELINE.json's
+              configurations (SIM_CONFIGS): 2, 64 peers, uniform, 10k
+              events, every peer's view (V = 64); 4, power-law, 64 peers
+              x 4 snapshots (V = 256); 3, 1024 peers with 341 silent,
+              131,024 events, two temporal views. Each through
+              consensus_views_factored (config 2 also consensus_views):
+              the six [V, ...] outputs' digest equal to the JAX
+              package's (GOLDEN_SIM), check_view_consistency, B1 TALLY
+              launches equal to the DAG levels and MATRIX launches to
+              the fame chunks whatever V is; generation, stage seconds,
+              decided events per view, peak memory; config 3 also
+              tests/test_at_scale.py's assertions; a GossipSim view on
+              the card equal to the port's host Hashgraph;
+11. sustained — the live node's incremental engine (IncrementalEngine,
               n = 64, capacity 65,536, block 512, k_capacity 1,024) fed
               synthetic_dag(64, 50_000, seed=3) in batches of 4,096
               with pipelined append / collect / dispatch, as bench.py's
@@ -65,17 +80,17 @@ line is not printed):
               pass; its final state equal to the one-shot run_pipeline
               on the card and to the JAX reference package's digest
               (GOLDEN_SUSTAINED_*);
-11. sustained_profile — the same engine with run() per batch: phase
+12. sustained_profile — the same engine with run() per batch: phase
               shares of passes 3-6 with synchronised timers; pass 7
               under torch.cuda.set_sync_debug_mode("warn"), which must
               flag exactly one host read per frontier round; pass 8 (a
               steady pass) under torch.profiler: the card's busy share,
               device time by kernel, host waits;
-12. northstar_incremental — the engine at n = 1024 (capacity 131,072,
+13. northstar_incremental — the engine at n = 1024 (capacity 131,072,
               block 512, k_capacity 512), run() per batch of 4,096 over
               the north-star DAG: time, peak memory, launches by site,
               44,770 decided and the state equal to the one-shot run;
-13. hashgraph — signed events through the port's host surface:
+14. hashgraph — signed events through the port's host surface:
               signed_gossip (n = 64, 32,768 events, deterministic
               RFC 6979 signatures, port modules only) fed to a
               TorchHashgraph (the sustained engine settings) by
@@ -87,7 +102,7 @@ line is not printed):
               the card, launches by site, insert / Store-mirror / pass
               seconds, and a frame reset replayed on a fresh graph equal
               to the host Hashgraph's replay;
-14. node    — the node seam: (a) tests/test_failover.py's Core script
+15. node    — the node seam: (a) tests/test_failover.py's Core script
               (600 scripted syncs, seed 13, consensus every 5) with one
               Core(engine="torch", device_verify=True) on the card among
               three host Cores (its syncs verified by the P-256 kernel,
@@ -106,7 +121,7 @@ line is not printed):
               no failed pass; the engine's cost report
               (Core.engine_cost_report, /debug/profile?cost=1) with the
               JAX engine's key set;
-15. cli     — the port's CLI, one node per process: 4 processes of
+16. cli     — the port's CLI, one node per process: 4 processes of
               `python -m babble_tpu_torch.cli run --engine torch` on the
               card (TCP gossip on localhost, --store file, heartbeat
               10 ms, consensus interval 250 ms), one DummyClient each, a
@@ -123,8 +138,8 @@ line is not printed):
               exit codes, rounds after the restart, no failover and no
               failed pass in any process's stderr.
 
-Each path that launches a kernel (the one-shot main path, sustained,
-northstar_incremental, hashgraph, both parts of node) runs with every
+Each path that launches a kernel (the one-shot main path, sim,
+sustained, northstar_incremental, hashgraph, both parts of node) runs with every
 launch count set to 0 just before it and read just after, and fails when
 the kernel was not launched at each of its sites. Lines before the last: a {"kernels": [...]} line (launches on
 the engine's path and on each path, max error, times and bound), a
@@ -197,6 +212,29 @@ HASHGRAPH_CACHE = 100_000
 GOLDEN_HASHGRAPH_INPUT = "631cacf9048e1b3a795046327e6c71317d5eed43a5d4282b5696aefcc39d95fb"
 GOLDEN_HASHGRAPH_OUTPUT = "e7c7462f18d4a493a7c1360dba12f1646806c78fd8e2f3a7afe6d64d1138c569"
 HASHGRAPH_DECIDED = 30_996
+# Phase sim: BASELINE.json's batched-simulator configurations at their
+# stated sizes (sim_views builds each one's DAG and view masks). The
+# goldens are digest() of the JAX reference package's
+# consensus_views_factored on the same inputs, computed on the CPU:
+#   python3 -c "import sys; sys.path[:0] = ['.', 'tests']; \
+#     import test_torch_sim as t; print(t.jax_sim_digest('config2'))"
+# (likewise config4 and config3; config3 takes ~20 minutes and ~5 GB).
+SIM_CONFIGS = {
+    # 64 peers, uniform peer selection, 10k events: every peer's final view
+    "config2": dict(n=64, steps=9_936, seed=1),
+    # power-law gossip topology: 64 peers x 4 temporal snapshots
+    "config4": dict(n=64, steps=9_936, selector="powerlaw", alpha=1.2, seed=5,
+                    snapshots=[2_484, 4_968, 7_452, 9_936]),
+    # 1024 peers, f = 341 silent-byzantine: the network after 100,000
+    # events and at the end (tests/test_at_scale.py)
+    "config3": dict(n=1024, steps=130_000, silent_last=341, seed=9, prefix=100_000),
+}
+GOLDEN_SIM = {
+    "config2": "1a9e488b0f80122a6c8cc1f97bc3d130c864fc6eaa12eb75d7a96c420bafd65d",
+    "config4": "d62425356906100f3d17816f576d743b59f47c588701f05c206cb611349f6694",
+    "config3": "ef8583af465cac1ea0b30eee6aa690a7e860c12bc25680a06413693c2b7766ad",
+}
+SIM_GOSSIP = (5, 11, 120)  # GossipSim(n, seed).run(steps): tests/test_sim.py
 # The node phase: tests/test_failover.py's Core script (syncs, seed,
 # consensus every k syncs), then bench.py's node stage for the device
 # engine (bench.py build_host_testnet / node_testnet_events_per_sec).
@@ -262,6 +300,14 @@ KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
 # - node_fame_window / node_frontier_probe: the live node's engine at
 #   n = 4 (phase node), the main path's shapes; its probe tests 1,024
 #   positions of each chain (a chain of ~1,000 events, phase node's).
+# - sim_config3_level / sim_config2_level: compute_rounds with a view
+#   axis (phase sim), one DAG level of every view in one launch against
+#   V stacked working tables of r + 1 rows each (r = 758 and 560), rows
+#   view-major, each naming one of two adjacent parent rounds of its own
+#   view's table: config 3's 2 x 1,024 rows at n = 1,024, config 2's
+#   64 x 64 at n = 64;
+# - sim_config2_fame: decide_fame's launch over 64 views' tables at the
+#   tight bucket (r = 32: 31 voting rounds x 64 witnesses a view).
 NODE_PROBE_WAYS = 1024
 GATHERED_SHAPES = [
     ("node_fame_window", 15 * 4, 4, 4, 15, "tiles"),
@@ -274,6 +320,9 @@ GATHERED_SHAPES = [
     ("engine_fame_window", 15 * 64, 64, 64, 15, "tiles"),
     ("northstar_engine_fame", 15 * 1024, 1024, 1024, 15, "tiles"),
     ("northstar_engine_probe", 1024, 1024, 1024, 1, "one"),
+    ("sim_config3_level", 2 * 1024, 1024, 1024, 2 * 759, ("views", 2, "two")),
+    ("sim_config2_level", 64 * 64, 64, 64, 64 * 561, ("views", 64, "two")),
+    ("sim_config2_fame", 64 * 31 * 64, 64, 64, 64 * 32, ("views", 64, "tiles")),
 ]
 # The pipeline functions that call strongly_see_gathered, by site.
 SITES = {"decide_fame": "fame", "sees_sm": "frontier_probe",
@@ -305,6 +354,50 @@ def dag_digest(dag, s_rank) -> str:
     return digest([dag.self_parent, dag.other_parent, dag.creator, dag.index,
                    dag.coin, dag.ts_rank, dag.levels, dag.chain, dag.chain_len,
                    dag.chain_rank, dag.root_round, s_rank])
+
+
+def sim_views(name, simulate_views):
+    """(dag, masks [V, E] bool, s_rank) of SIM_CONFIGS[name], built by
+    `simulate_views` (the port's, or the JAX package's for the goldens:
+    both are numpy and give the same arrays)."""
+    cfg = dict(SIM_CONFIGS[name])
+    n, silent_last, prefix = cfg.pop("n"), cfg.pop("silent_last", 0), cfg.pop("prefix", None)
+    silent = np.zeros(n, bool)
+    silent[n - silent_last:] = True
+    dag, masks, s_rank = simulate_views(n, silent=silent, **cfg)
+    if prefix is not None:
+        masks = np.zeros((2, dag.e), bool)
+        masks[0, :prefix] = True
+        masks[1] = True
+    return dag, masks, s_rank
+
+
+def sim_gossip_check(sim, device="cuda") -> dict:
+    """tests/test_sim.py's masked-view parity on the port: the
+    best-informed peer's view of a GossipSim through consensus_views on
+    `device`, against the port's host Hashgraph fed exactly that
+    sub-DAG in insertion order (each event carried by its Go-JSON
+    bytes): the same consensus order and, for every event of the view,
+    the same round."""
+    from babble_tpu_torch.hashgraph import Hashgraph, InmemStore
+    from babble_tpu_torch.hashgraph.event import event_from_json_obj
+    from babble_tpu_torch.ops.sim import consensus_views, view_order
+
+    dag, masks = sim.dag(), sim.view_masks()
+    v = int(masks.sum(1).argmax())
+    mask = masks[v]
+    h = Hashgraph(sim.participants, InmemStore(sim.participants, 10_000))
+    for i, ev in enumerate(sim.events):
+        if mask[i]:
+            h.insert_event(event_from_json_obj(json.loads(ev.marshal())), True)
+    h.run_consensus()
+    out = consensus_views(dag, mask[None, :], device=device)
+    rounds, rr, cts = (o[0].cpu().numpy() for o in (out[0], out[4], out[5]))
+    order = [dag.hexes[i] for i in view_order(dag, rr, cts)]
+    rounds_equal = all(int(rounds[i]) == h.round(ev.hex())
+                       for i, ev in enumerate(sim.events) if mask[i])
+    return {"view": v, "events": int(mask.sum()), "decided": len(order),
+            "equal": order == h.consensus_events() and rounds_equal}
 
 
 def ss_bound_ms(m: int, w: int, n: int):
@@ -342,10 +435,21 @@ def gathered_inputs(m, w, n, r, wrow_kind, seed=3):
     w_tab = rng.integers(0, ef, (r, w)).astype(np.int32)
     w_tab[rng.random((r, w)) < 0.2] = -1
     xs = rng.integers(0, ex, m).astype(np.int32)
-    wrow = {"tiles": np.repeat(np.arange(r), m // r),
-            "one": np.zeros(m),
-            "two": r - 2 + rng.integers(0, 2, m),
-            "mixed": rng.integers(0, r, m)}[wrow_kind].astype(np.int32)
+    if isinstance(wrow_kind, tuple):
+        # ("views", V, kind): V stacked tables of r / V rows, rows
+        # view-major, each view's rows naming rows of its own table below
+        # its last (compute_rounds' dump row; fame's last round votes on
+        # nothing): "two" adjacent rows at random, or in "tiles" by row
+        _, v, kind = wrow_kind
+        rv, mv = r // v, m // v
+        own = (rv - 3 + rng.integers(0, 2, (v, mv)) if kind == "two"
+               else np.tile(np.repeat(np.arange(rv - 1), mv // (rv - 1)), (v, 1)))
+        wrow = (np.arange(v)[:, None] * rv + own).reshape(-1).astype(np.int32)
+    else:
+        wrow = {"tiles": np.repeat(np.arange(r), m // r),
+                "one": np.zeros(m),
+                "two": r - 2 + rng.integers(0, 2, m),
+                "mixed": rng.integers(0, r, m)}[wrow_kind].astype(np.int32)
     return x_tab, xs, f_tab, w_tab, wrow, 2 * n // 3 + 1
 
 
@@ -858,10 +962,11 @@ def _r_small(dag, rounds) -> int:
     return _round_bucket(max_round, max(dag.max_rounds, max_round + 1))
 
 
-def stage_times(dag, engine, device):
+def stage_times(dag, engine, device, valid_mask=None):
     """Per-stage seconds of one run, each stage synchronised: where the
     pipeline's time goes (the device idles between launches, so these
-    are launch-bound wall times)."""
+    are launch-bound wall times). `valid_mask` (wavefront: [V, E+1] on
+    the device) times the view simulator's factored pipeline."""
     import torch
 
     from babble_tpu_torch.ops import closure, frontier, kernels, pipeline
@@ -889,9 +994,9 @@ def stage_times(dag, engine, device):
         t0 = tick("first_descendants", t0)
         rounds, _, wt = kernels.compute_rounds(
             t["self_parent"], t["other_parent"], t["creator"], t["index"], la,
-            fd, t["levels"], t["root_round"], n=n, sm=sm, r=dag.max_rounds)
+            fd, t["levels"], t["root_round"], valid_mask, n=n, sm=sm, r=dag.max_rounds)
         r_small = pipeline.tight_round_bucket(rounds, dag.max_rounds)
-        wt = wt[:r_small].contiguous()
+        wt = wt[..., :r_small, :].contiguous()
         t0 = tick("rounds", t0)
     else:
         la, rbase = closure.coordinates(dag, block=512, device=dev)
@@ -913,7 +1018,7 @@ def stage_times(dag, engine, device):
                                  r=r_small)
     t0 = tick("fame", t0)
     kernels.decide_round_received(rounds, wt, famous, la, fd, t["creator"],
-                                  t["index"], t["chain_rank"], n=n, r=r_small)
+                                  t["index"], t["chain_rank"], valid_mask, n=n, r=r_small)
     tick("round_received", t0)
     return times
 
@@ -1101,6 +1206,127 @@ def phase_northstar(rec, device="cuda"):
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print("northstar stages (s): " + json.dumps(
         {k: round(v, 4) for k, v in rec["northstar"]["stages_s"].items()}))
+
+
+def sim_fame_chunks(dag, v_n, r) -> int:
+    """decide_fame's MATRIX launches for v_n views at round bound r."""
+    from babble_tpu_torch.ops.kernels import chunk_width
+
+    return -(-(r - 1) // chunk_width(r - 1, v_n * dag.n * dag.n))
+
+
+def sim_run(dag, masks, s_rank, fn, device):
+    """One simulator entry point `fn(dag, masks, device=device)` on the
+    card with the launch counts and the peak memory reset just
+    before: (outputs on the host, the views' orders, record). The record
+    holds the launches by mode and by site, the decided events per view
+    and the peak device memory."""
+    import torch
+
+    from babble_tpu_torch.ops.sim import check_view_consistency
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with launches_by_site() as sites:
+        t0 = time.perf_counter()
+        out = fn(dag, masks, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    outs = host(out)
+    orders = check_view_consistency(dag, outs[4], outs[5], s_ints=s_rank)
+    decided = [len(o) for o in orders]
+    return outs, orders, {
+        "entry": fn.__name__, "seconds": seconds,
+        "launches": launches, "launches_by_site": sites,
+        "decided_min": min(decided), "decided_max": max(decided),
+        "max_round": int(outs[0].max()), "peak_mem_bytes": peak,
+        "output_digest": digest(outs)}
+
+
+def check_sim_launches(name, dag, v_n, res, r) -> None:
+    """The rounds stage launches TALLY once per DAG level and fame MATRIX
+    once per chunk of voting rounds, for all V views together."""
+    want_sites = {"compute_rounds": dag.levels.shape[0], "fame": sim_fame_chunks(dag, v_n, r)}
+    want = {"counts": 0, "matrix": want_sites["fame"], "tally": want_sites["compute_rounds"]}
+    if res["launches"] != want or res["launches_by_site"] != want_sites:
+        raise AssertionError(f"sim {name} {res['entry']}: launches {res['launches']} by "
+                             f"site {res['launches_by_site']}, expected {want} by site "
+                             f"{want_sites}")
+
+
+def phase_sim(rec, device="cuda"):
+    """The batched view simulator (ops/sim.py) at BASELINE.json's
+    configurations 2, 4 and 3 (SIM_CONFIGS): consensus_views_factored
+    over every view, its digest against the JAX package's
+    (GOLDEN_SIM), check_view_consistency, launches independent of V;
+    config 2 also through consensus_views (the fused form at the static
+    bound), equal to the same golden; config 3 also
+    tests/test_at_scale.py's assertions. Then a GossipSim view on the
+    card against the port's host Hashgraph (sim_gossip_check)."""
+    import torch
+
+    from babble_tpu_torch.ops.sim import (GossipSim, consensus_views,
+                                          consensus_views_factored, simulate_views)
+
+    res = rec["sim"] = {}
+    for name in ("config2", "config4", "config3"):
+        t0 = time.perf_counter()
+        dag, masks, s_rank = sim_views(name, simulate_views)
+        gen_s = time.perf_counter() - t0
+        v_n = masks.shape[0]
+        cfg = {"n": dag.n, "e": dag.e, "views": v_n, "levels": list(dag.levels.shape),
+               "k": int(dag.chain.shape[1]), "max_rounds": dag.max_rounds,
+               "generation_s": gen_s, "runs": {}}
+        res[name] = cfg
+        fns = [consensus_views_factored] + ([consensus_views] if name == "config2" else [])
+        for fn in fns:
+            outs, orders, run = sim_run(dag, masks, s_rank, fn, device)
+            cfg["runs"][fn.__name__] = run
+            r = dag.max_rounds if fn is consensus_views else _r_small(dag, outs[0])
+            print(f"sim {name} {fn.__name__}: n={dag.n} e={dag.e} V={v_n} "
+                  f"levels={dag.levels.shape} generation {gen_s:.2f} s, run "
+                  f"{run['seconds']:.3f} s, decided per view "
+                  f"{run['decided_min']}..{run['decided_max']}, max_round {run['max_round']}, peak "
+                  f"{run['peak_mem_bytes'] / 2**30:.2f} GiB, launches {run['launches']} "
+                  f"by site {run['launches_by_site']}, digest "
+                  f"{'ok' if run['output_digest'] == GOLDEN_SIM[name] else 'MISMATCH'}")
+            if run["output_digest"] != GOLDEN_SIM[name]:
+                raise AssertionError(f"sim {name} {fn.__name__}: digest "
+                                     f"{run['output_digest']} != {GOLDEN_SIM[name]}")
+            check_sim_launches(name, dag, v_n, run, r)
+        # the factored form again, each stage synchronised
+        padded = torch.from_numpy(np.pad(masks, ((0, 0), (0, 1)))).to(device)
+        cfg["stages_s"] = stage_times(dag, "wavefront", device, padded)
+        print(f"sim {name} stages (s): "
+              + json.dumps({k: round(v, 4) for k, v in cfg["stages_s"].items()}))
+        if name == "config3":  # tests/test_at_scale.py's assertions
+            decided = [len(o) for o in orders]
+            n, silent_last = dag.n, SIM_CONFIGS[name]["silent_last"]
+            body = dag.creator[n:dag.e]
+            if int(outs[0][1].max()) < 4 or min(decided) <= 10_000 or decided[1] <= decided[0]:
+                raise AssertionError(f"sim config3: max round {int(outs[0][1].max())}, "
+                                     f"decided {decided}")
+            if (body >= n - silent_last).any():
+                raise AssertionError("sim config3: a silent peer created an event")
+            cfg["decided"] = decided
+    n, seed, steps = SIM_GOSSIP
+    t0 = time.perf_counter()
+    sim = GossipSim(n, seed=seed)
+    sim.run(steps)
+    check = sim_gossip_check(sim, device=device)
+    check["seconds"] = time.perf_counter() - t0
+    res["gossip_sim"] = check
+    print(f"sim GossipSim({n}, seed={seed}).run({steps}): view {check['view']} "
+          f"({check['events']} events, {check['decided']} decided) on the card == the host "
+          f"Hashgraph: {check['equal']} ({check['seconds']:.2f} s)")
+    if not check["equal"]:
+        raise AssertionError("sim: the GossipSim view differs from the host Hashgraph")
+    # hand the simulator's cached blocks (config 3 peaks near 10 GiB) back
+    # to the card, so the phases after it start as they did without it
+    torch.cuda.empty_cache()
 
 
 def engine_state(eng, e):
@@ -2690,6 +2916,10 @@ def kernels_line(rec) -> dict:
                  "node"):
         r = rec.get(name) or {}
         by_path[name] = {"by_mode": r.get("launches"), "by_site": r.get("launches_by_site")}
+    for name, cfg in (rec.get("sim") or {}).items():
+        for entry, run in (cfg.get("runs") or {}).items():
+            by_path[f"sim_{name}_{entry}"] = {"by_mode": run["launches"],
+                                              "by_site": run["launches_by_site"]}
     cli_profile = (rec.get("cli") or {}).get("profile") or {}
     by_path["cli"] = {"profiled_launches": cli_profile.get("strongly_see_launches"),
                       "profile_s": cli_profile.get("seconds"),
@@ -2777,7 +3007,8 @@ def main() -> int:
     phases = [("build", phase_build), ("kernel", phase_kernel), ("p256", phase_p256),
               ("small", phase_small), ("headline", phase_headline),
               ("main_path", phase_main_path_counts), ("profile", phase_profile),
-              ("northstar", phase_northstar), ("sustained", phase_sustained),
+              ("northstar", phase_northstar), ("sim", phase_sim),
+              ("sustained", phase_sustained),
               ("sustained_profile", phase_sustained_profile),
               ("northstar_incremental", phase_northstar_incremental),
               ("hashgraph", phase_hashgraph), ("node", phase_node), ("cli", phase_cli)]
@@ -2821,7 +3052,7 @@ def main() -> int:
     print(json.dumps({"results": {k: rec.get(k) for k in
                                   ("host", "build", "p256", "headline",
                                    "main_path_launches",
-                                   "profile", "northstar", "sustained",
+                                   "profile", "northstar", "sim", "sustained",
                                    "sustained_profile", "northstar_incremental",
                                    "hashgraph", "node", "cli", "phase_s", "total_s")}},
                      default=str))

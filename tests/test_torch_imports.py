@@ -46,6 +46,7 @@ def test_runtime_import_closure_is_clean():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "babble_tpu_torch.ops.hopper_kernels" in res["modules"]
     assert "babble_tpu_torch.ops.p256" in res["modules"]
+    assert "babble_tpu_torch.ops.sim" in res["modules"]
     assert "babble_tpu_torch.hashgraph.torch_graph" in res["modules"]
     for name in ("node.node", "node.core", "net.inmem_transport", "service.ingress",
                  "telemetry.promtext", "telemetry.dagdump", "telemetry.tracemerge",
