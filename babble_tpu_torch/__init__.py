@@ -18,7 +18,10 @@ through the CLI (`python -m babble_tpu_torch.cli keygen|run|version`):
 TCP gossip (net/tcp_transport.py), the sqlite `FileStore`, the socket
 and journal app proxies (proxy/), and the HTTP service (service/) with
 /Stats, /metrics and /debug/*; `dummy.py` is the chat client an app
-runs beside it.
+runs beside it. The consensus pipeline also runs memory-sharded over
+rank processes on torch.distributed (`spawn_ranks`, parallel.py;
+`ops.sharded_pipeline`), and entry.py holds the top-level entry points,
+`entry` and `dryrun_multichip`.
 
 The package imports torch, numpy and the standard library only (and
 `cryptography` when it is installed). Entry points run on the CUDA
@@ -27,6 +30,8 @@ wrapper takes its plain PyTorch version.
 """
 
 from .devices import resolve_device
+from .entry import dryrun_multichip, entry
+from .parallel import spawn_ranks
 
 
 def _read_version() -> str:
@@ -57,4 +62,4 @@ def _read_version() -> str:
 
 __version__ = _read_version()
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["resolve_device", "spawn_ranks", "entry", "dryrun_multichip", "__version__"]

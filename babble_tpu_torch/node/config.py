@@ -91,7 +91,7 @@ class Config:
     engine: str = "torch"
     # Devices for the torch engine's resident state: 0/1 = single
     # device, the only layout the port has; d > 1 is refused until the
-    # engine takes a mesh (ROADMAP A12).
+    # engine takes a mesh (ROADMAP A12b).
     engine_mesh: int = 0
     # Minimum seconds between consensus passes. 0 = reference behavior
     # (RunConsensus after every sync, node/node.go:467-487). With the

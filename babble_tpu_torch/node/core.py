@@ -74,7 +74,7 @@ class Core:
             if engine_mesh and engine_mesh > 1:
                 raise ValueError(
                     f"engine_mesh={engine_mesh}: the torch engine holds its "
-                    "state on one device and takes no mesh (ROADMAP A12)")
+                    "state on one device and takes no mesh (ROADMAP A12b)")
             # Pre-size the engine so steady operation never crosses a
             # growth threshold: every capacity/chain-bucket doubling
             # reallocates and copies the engine's tables while the

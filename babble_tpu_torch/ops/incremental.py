@@ -47,7 +47,7 @@ on the staging worker, never on the caller's thread unless a redo runs
 there.
 
 Left out, with the roadmap items that own them: the multi-device mesh
-placement (the constructor raises on `mesh`), and the compiled cost
+placement (the constructor raises on `mesh`; A12b), and the compiled cost
 report of the JAX package (XLA cost analysis; device telemetry).
 """
 
@@ -625,7 +625,7 @@ class IncrementalEngine:
             raise ValueError("need at least one participant")
         if mesh is not None:
             raise NotImplementedError(
-                "the multi-device mesh placement is not ported yet")
+                "the multi-device mesh placement is not ported yet (ROADMAP A12b)")
         self.device = resolve_device(device)
         self.n = n
         self.sm = 2 * n // 3 + 1

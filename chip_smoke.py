@@ -136,12 +136,37 @@ line is not printed):
               node's /Stats and /metrics, each process's median pass
               wall and peak device memory; gates on the clients' logs,
               exit codes, rounds after the restart, no failover and no
-              failed pass in any process's stderr.
+              failed pass in any process's stderr;
+17. sharded — the memory-sharded pipeline (ops/sharded.py) as rank
+              processes on torch.distributed (parallel.spawn_ranks): 4
+              gloo ranks sharing the card run BASELINE config 5
+              (synthetic_dag(4096, 16,384, seed=21), every event in round
+              0) and then the headline, one spawn; one NCCL rank the
+              north star; then entry.dryrun_multichip(8) on 8 gloo
+              ranks (replica-parallel agreement, the sharded pipeline
+              against the single-device oracle, the a-major layout of a
+              2 x 4 ("dcn", "ici") mesh). Config 5 equals the port's
+              single-device run_pipeline on the card and the JAX
+              package's digest (GOLDEN_SHARDED_C5), and each rank's
+              chain-sharded coordinates and event-sharded first
+              descendants equal (by digest) its shards of the
+              single-device tables on the card, which every output of
+              that all-round-0 DAG would not show; the headline
+              GOLDEN_OUTPUT with
+              47,659 decided, the north star the single-device run with
+              44,770 decided. Each rank resets B1's launch counts before
+              each run and reads them after: TALLY once per DAG level at
+              the rounds site and MATRIX once per chunk of voting rounds
+              at the fame site, in every rank of every run. Per run: the
+              slowest rank's seconds, ranks, backend, the collectives a
+              rank made, and by rank the host seconds in them, the bytes
+              gloo copied through host memory and peak device memory.
 
 Each path that launches a kernel (the one-shot main path, sim,
-sustained, northstar_incremental, hashgraph, both parts of node) runs with every
-launch count set to 0 just before it and read just after, and fails when
-the kernel was not launched at each of its sites. Lines before the last: a {"kernels": [...]} line (launches on
+sustained, northstar_incremental, hashgraph, both parts of node, every
+rank of every sharded run) runs with every launch count set to 0 just
+before it and read just after, and fails when the kernel was not
+launched at each of its sites. Lines before the last: a {"kernels": [...]} line (launches on
 the engine's path and on each path, max error, times and bound), a
 {"results": ...} line, and the nvidia-smi line. The last line is
 {"ok": true, "device": {...}}.
@@ -235,6 +260,25 @@ GOLDEN_SIM = {
     "config3": "ef8583af465cac1ea0b30eee6aa690a7e860c12bc25680a06413693c2b7766ad",
 }
 SIM_GOSSIP = (5, 11, 120)  # GossipSim(n, seed).run(steps): tests/test_sim.py
+# Phase sharded: BASELINE config 5 (tests/test_at_scale.py:91-92), 4,096
+# peers, through the memory-sharded pipeline on SHARDED_RANKS gloo ranks
+# sharing the card. The goldens are dag_digest and digest() of the JAX
+# reference package's run_pipeline(dag, engine="wavefront") on the same
+# DAG, computed on the CPU (~20 minutes, 8 cores):
+#   python3 -c "import sys; sys.path[:0] = ['.']; import numpy as np, \
+#     chip_smoke as c; from babble_tpu.ops.dag import synthetic_dag; \
+#     from babble_tpu.ops.pipeline import run_pipeline; \
+#     d, s = synthetic_dag(4096, 16384, seed=21); \
+#     print(c.dag_digest(d, s), c.digest([np.asarray(x) for x in \
+#     run_pipeline(d, engine='wavefront')]))"
+# Every event of that DAG is in round 0: nothing is decided.
+SHARDED_C5 = (4096, 16_384, 21)
+SHARDED_C5_DECIDED = 0
+GOLDEN_SHARDED_C5_INPUT = "b9ebcd4ade323ef684dbf6647508639f27dd0ee4ab12a64cf2a9c06b20d3fbfa"
+GOLDEN_SHARDED_C5 = "b7154b636510e41c6622aa4e7545df1c7d5299e4a33f8003093095c393f13c5a"
+SHARDED_RANKS = 4
+DRYRUN_RANKS = 8
+SHARDED_TIMEOUT_S = 600.0
 # The node phase: tests/test_failover.py's Core script (syncs, seed,
 # consensus every k syncs), then bench.py's node stage for the device
 # engine (bench.py build_host_testnet / node_testnet_events_per_sec).
@@ -308,6 +352,14 @@ KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
 #   64 x 64 at n = 64;
 # - sim_config2_fame: decide_fame's launch over 64 views' tables at the
 #   tight bucket (r = 32: 31 voting rounds x 64 witnesses a view).
+# - sharded_c5_level / sharded_c5_fame: the sharded pipeline (phase
+#   sharded) at config 5 on 4 ranks: a rank's rounds TALLY over a
+#   4,096-wide level against its 1,024 witness chains (parent round 0,
+#   19 round rows), and its fame MATRIX, 7 voting rounds x 1,024 voters
+#   against the 4,096 witnesses of the round before;
+# - sharded_headline_level / sharded_headline_fame: the same at the
+#   headline on 4 ranks: 16 witness chains a rank over 2,711 round rows,
+#   and 127 voting rounds x 16 voters against 64 witnesses.
 NODE_PROBE_WAYS = 1024
 GATHERED_SHAPES = [
     ("node_fame_window", 15 * 4, 4, 4, 15, "tiles"),
@@ -323,7 +375,14 @@ GATHERED_SHAPES = [
     ("sim_config3_level", 2 * 1024, 1024, 1024, 2 * 759, ("views", 2, "two")),
     ("sim_config2_level", 64 * 64, 64, 64, 64 * 561, ("views", 64, "two")),
     ("sim_config2_fame", 64 * 31 * 64, 64, 64, 64 * 32, ("views", 64, "tiles")),
+    ("sharded_c5_level", 4096, 1024, 4096, 19, "one"),
+    ("sharded_c5_fame", 7 * 1024, 4096, 4096, 7, "tiles"),
+    ("sharded_headline_level", 64, 16, 64, 2711, "two"),
+    ("sharded_headline_fame", 127 * 16, 64, 64, 127, "tiles"),
 ]
+# (timed calls, warm-up calls) of the plain version where the default
+# would take minutes: it gathers [rows, W, n] in chunks of 2^28.
+PLAIN_ITERS = {"sharded_c5_level": (3, 1), "sharded_c5_fame": (1, 1)}
 # The pipeline functions that call strongly_see_gathered, by site.
 SITES = {"decide_fame": "fame", "sees_sm": "frontier_probe",
          "step": "skip_correction", "compute_rounds": "compute_rounds"}
@@ -637,7 +696,9 @@ def phase_kernel(rec, device="cuda"):
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             iters = 20 if n >= 1024 else 200
             ms = cuda_ms(lambda: strongly_see_gathered(*args, sm, mode), iters)
-            plain_ms = cuda_ms(lambda: strongly_see_gathered_ref(*args, sm, mode), iters)
+            plain_iters, plain_warm = PLAIN_ITERS.get(name, (iters, 3))
+            plain_ms = cuda_ms(lambda: strongly_see_gathered_ref(*args, sm, mode),
+                               plain_iters, plain_warm)
             bound, by = gathered_bound_ms(*args, mode)
             hits = float(want.float().mean() / (1 if mode == "matrix" else w))
             rows.append({"name": name, "mode": mode, "shape": [m, w, n, r],
@@ -2893,6 +2954,159 @@ def phase_northstar_incremental(rec, device="cuda"):
         raise AssertionError(f"northstar incremental differs from the one-shot run in {bad}")
 
 
+def sharded_fame_chunks(dag, d, r_small) -> int:
+    """The sharded fame's MATRIX launches a rank: one per chunk of
+    voting rounds (ops/sharded.py fame), none without a voting round."""
+    from babble_tpu_torch.ops.kernels import chunk_width
+
+    if r_small < 2:
+        return 0
+    n_loc = dag.n // d
+    return -(-(r_small - 1) // chunk_width(r_small - 1, n_loc * dag.n))
+
+
+def check_sharded_sites(name, dag, records, r_small) -> None:
+    """Every rank launched B1 TALLY once per DAG level at the rounds
+    site, and MATRIX once per chunk of voting rounds at the fame site,
+    and nothing else."""
+    levels = dag.levels.shape[0]
+    fame = sharded_fame_chunks(dag, records[0]["size"], r_small)
+    want_sites = {"rounds": {"calls": levels, "launches": levels}}
+    if fame:
+        want_sites["fame"] = {"calls": fame, "launches": fame}
+    want = {"matrix": fame, "tally": levels}
+    for r in records:
+        if r["sites"] != want_sites or r["launches"] != want:
+            raise AssertionError(
+                f"sharded {name} rank {r['rank']}: launches {r['launches']} by site "
+                f"{r['sites']}, expected {want} by site {want_sites}")
+
+
+def sharded_run_record(name, dag, records, backend, spawn_s) -> dict:
+    """One sharded run's line: the slowest rank's synchronised seconds,
+    the ranks and backend, the collectives a rank made, and by rank the
+    host seconds in them, the bytes through host memory, peak device
+    memory and launches by site."""
+    out = records[0]["outputs"]
+    return {"name": name, "n": dag.n, "e": dag.e, "levels": list(dag.levels.shape),
+            "ranks": len(records), "backend": backend, "spawn_s": spawn_s,
+            "seconds": max(r["seconds"] for r in records),
+            "seconds_by_rank": [r["seconds"] for r in records],
+            "host_bytes_by_rank": [r["host_bytes"] for r in records],
+            "collectives": records[0]["collectives"],
+            "collective_s_by_rank": [r["collective_s"] for r in records],
+            "peak_mem_bytes_by_rank": [r["peak_mem_bytes"] for r in records],
+            "sites_by_rank": [r["sites"] for r in records],
+            "decided": int((out[4] >= 0).sum()), "max_round": int(out[0].max()),
+            "output_digest": digest(out)}
+
+
+def print_sharded_run(res) -> None:
+    print(f"sharded {res['name']}: n={res['n']} e={res['e']} levels={res['levels']} "
+          f"{res['ranks']} ranks ({res['backend']}) {res['seconds']:.2f} s "
+          f"(by rank {[round(t, 2) for t in res['seconds_by_rank']]}), decided "
+          f"{res['decided']}, max round {res['max_round']}; {res['collectives']} collectives, "
+          f"{[round(t, 2) for t in res['collective_s_by_rank']]} s in them by rank; "
+          f"through host memory "
+          f"{[round(b / 2**20, 1) for b in res['host_bytes_by_rank']]} MiB, peak "
+          f"{[b and round(b / 2**30, 2) for b in res['peak_mem_bytes_by_rank']]} GiB by rank; "
+          f"launches by site {res['sites_by_rank'][0]} in every rank")
+
+
+def phase_sharded(rec, device="cuda"):
+    """The memory-sharded pipeline (ops/sharded.py) as rank processes on
+    the card: SHARDED_RANKS gloo ranks (one spawn) run BASELINE config 5
+    (SHARDED_C5) and then the headline; one NCCL rank the north star;
+    then entry.dryrun_multichip(DRYRUN_RANKS) (gloo: 8 ranks, one GPU).
+    Each equals the port's single-device run_pipeline on the card,
+    config 5 also the JAX package's digest (GOLDEN_SHARDED_C5) and the
+    headline GOLDEN_OUTPUT; config 5's ranks hold their shards of the
+    single-device coordinates and first descendants (every event is in
+    round 0 there, so its six outputs would hide a wrong table); every
+    rank of every run launched B1 as check_sharded_sites says."""
+    import torch
+
+    from babble_tpu_torch.entry import dryrun_multichip
+    from babble_tpu_torch.ops import kernels
+    from babble_tpu_torch.ops.dag import synthetic_dag
+    from babble_tpu_torch.ops.pipeline import run_pipeline
+    from babble_tpu_torch.ops.sharded import (dag_arrays, oracle_equal, run_sharded,
+                                              single_device_table_digests)
+    from babble_tpu_torch.parallel import spawn_ranks
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    c5, c5_s = synthetic_dag(*SHARDED_C5[:2], seed=SHARDED_C5[2])
+    if dag_digest(c5, c5_s) != GOLDEN_SHARDED_C5_INPUT:
+        raise AssertionError("config 5 input digest differs from the JAX package's")
+    head, _ = synthetic_dag(*HEADLINE[:2], seed=HEADLINE[2])
+    ns, _ = synthetic_dag(*NORTHSTAR[:2], seed=NORTHSTAR[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c5_ref = host(run_pipeline(c5, device=device))
+    torch.cuda.synchronize()
+    c5_single_s = time.perf_counter() - t0
+    t = {f: torch.from_numpy(np.ascontiguousarray(getattr(c5, f))).to(device)
+         for f in ("self_parent", "other_parent", "creator", "index", "levels", "chain",
+                   "chain_len")}
+    la = kernels.compute_last_ancestors(t["self_parent"], t["other_parent"], t["creator"],
+                                        t["index"], t["levels"], n=c5.n)
+    fd = kernels.compute_first_descendants(la, t["creator"], t["index"], t["chain"],
+                                           t["chain_len"], n=c5.n)
+    c5_tables = single_device_table_digests(la, fd, t["chain"], SHARDED_RANKS)
+    del t, la, fd
+    torch.cuda.empty_cache()
+    ns_ref = rec.get("_northstar_out") or host(run_pipeline(ns, device=device))
+    res = {"single_device_c5_s": c5_single_s, "runs": {}}
+    checks = []
+    for backend, ranks, dags in (("gloo", SHARDED_RANKS, (("config5", c5), ("headline", head))),
+                                 ("nccl", 1, (("northstar", ns),))):
+        t0 = time.perf_counter()
+        runs = [{"dag": dag_arrays(dag), "tables": name == "config5"} for name, dag in dags]
+        out = spawn_ranks(ranks, run_sharded, runs, device, backend=backend, device=device,
+                          timeout_s=SHARDED_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        for i, (name, dag) in enumerate(dags):
+            records = [r[i] for r in out]
+            run = sharded_run_record(name, dag, records, backend, spawn_s)
+            res["runs"][name] = run
+            print_sharded_run(run)
+            checks.append((name, dag, records, run))
+    rec["sharded"] = res  # recorded before the gates, so a failure shows it
+    for name, dag, records, run in checks:
+        got = records[0]["outputs"]
+        want = {"config5": c5_ref, "headline": None, "northstar": ns_ref}[name]
+        if want is not None and oracle_equal(got, want) is not None:
+            raise AssertionError(f"sharded {name}: {oracle_equal(got, want)} differs from "
+                                 "the single-device run on the card")
+        golden = {"config5": GOLDEN_SHARDED_C5, "headline": GOLDEN_OUTPUT}.get(name)
+        if golden is not None and run["output_digest"] != golden:
+            raise AssertionError(f"sharded {name}: digest {run['output_digest']} != JAX golden")
+        decided = {"config5": SHARDED_C5_DECIDED, "headline": HEADLINE_DECIDED,
+                   "northstar": NORTHSTAR_DECIDED}[name]
+        if run["decided"] != decided:
+            raise AssertionError(f"sharded {name}: {run['decided']} decided != {decided}")
+        check_sharded_sites(name, dag, records, _r_small(dag, got[0]))
+    c5_records = next(records for name, _, records, _ in checks if name == "config5")
+    bad = [r["rank"] for r in c5_records if r["tables"] != c5_tables[r["index"]]]
+    if bad:
+        raise AssertionError(f"sharded config5: ranks {bad} hold coordinates or first "
+                             "descendants that differ from their shards of the single-device "
+                             "tables")
+    print("sharded: config 5 == single device and JAX golden, and every rank's coordinate "
+          "and first-descendant shards == the single-device tables'; headline == "
+          "GOLDEN_OUTPUT; north star == single device")
+    dry = dryrun_multichip(DRYRUN_RANKS, device=device, timeout_s=SHARDED_TIMEOUT_S)
+    res["dryrun"] = dry
+    dag2, _ = synthetic_dag(dry["n"], dry["e"], seed=1)
+    run = dry["run"]
+    records = [{"rank": i, "size": DRYRUN_RANKS, "sites": s, "launches": m}
+               for i, (s, m) in enumerate(zip(run["sites"], run["launches"]))]
+    check_sharded_sites("dryrun", dag2, records, _r_small(dag2, np.array([dry["max_round"]])))
+    print(f"sharded dryrun_multichip({DRYRUN_RANKS}) ({dry['backend']}): spawn "
+          f"{dry['spawn_s']:.2f} s, run {run['seconds']:.2f} s, {run['collectives']} "
+          f"collectives a rank, rank 0's seconds in them {run['collective_s'][0]:.2f}")
+
+
 def kernels_line(rec) -> dict:
     """One entry per entry point of the strongly-see kernel, timed at
     the shape the main path launches most (for the gathered entry the
@@ -2920,6 +3134,14 @@ def kernels_line(rec) -> dict:
         for entry, run in (cfg.get("runs") or {}).items():
             by_path[f"sim_{name}_{entry}"] = {"by_mode": run["launches"],
                                               "by_site": run["launches_by_site"]}
+    sharded = rec.get("sharded") or {}
+    for name, run in (sharded.get("runs") or {}).items():
+        by_path[f"sharded_{name}"] = {"ranks": run["ranks"], "backend": run["backend"],
+                                      "by_site_per_rank": run["sites_by_rank"]}
+    if sharded.get("dryrun"):
+        by_path["sharded_dryrun"] = {"ranks": sharded["dryrun"]["ranks"],
+                                     "backend": sharded["dryrun"]["backend"],
+                                     "by_site_per_rank": sharded["dryrun"]["run"]["sites"]}
     cli_profile = (rec.get("cli") or {}).get("profile") or {}
     by_path["cli"] = {"profiled_launches": cli_profile.get("strongly_see_launches"),
                       "profile_s": cli_profile.get("seconds"),
@@ -3011,7 +3233,8 @@ def main() -> int:
               ("sustained", phase_sustained),
               ("sustained_profile", phase_sustained_profile),
               ("northstar_incremental", phase_northstar_incremental),
-              ("hashgraph", phase_hashgraph), ("node", phase_node), ("cli", phase_cli)]
+              ("hashgraph", phase_hashgraph), ("node", phase_node), ("cli", phase_cli),
+              ("sharded", phase_sharded)]
     chosen = sys.argv[1:]
     if chosen:
         # A bring-up aid: build, then the named phases in the order given
@@ -3054,7 +3277,8 @@ def main() -> int:
                                    "main_path_launches",
                                    "profile", "northstar", "sim", "sustained",
                                    "sustained_profile", "northstar_incremental",
-                                   "hashgraph", "node", "cli", "phase_s", "total_s")}},
+                                   "hashgraph", "node", "cli", "sharded", "phase_s",
+                                   "total_s")}},
                      default=str))
     print(smi_line)
     if rec["failed"]:

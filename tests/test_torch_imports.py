@@ -47,6 +47,9 @@ def test_runtime_import_closure_is_clean():
     assert "babble_tpu_torch.ops.hopper_kernels" in res["modules"]
     assert "babble_tpu_torch.ops.p256" in res["modules"]
     assert "babble_tpu_torch.ops.sim" in res["modules"]
+    assert "babble_tpu_torch.ops.sharded" in res["modules"]
+    assert "babble_tpu_torch.parallel" in res["modules"]
+    assert "babble_tpu_torch.entry" in res["modules"]
     assert "babble_tpu_torch.hashgraph.torch_graph" in res["modules"]
     for name in ("node.node", "node.core", "net.inmem_transport", "service.ingress",
                  "telemetry.promtext", "telemetry.dagdump", "telemetry.tracemerge",
