@@ -337,10 +337,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "without a CUDA device run exits unless cpu "
                          "is named")
     rn.add_argument("--engine_mesh", type=int, default=0,
-                    help="devices for the tpu engine's resident state "
-                         "(0/1 = single device; d > 1 shards the "
-                         "O(E*n) carries over a d-device mesh so DAG "
-                         "capacity scales with local chips)")
+                    help="shards of the torch engine's resident state "
+                         "(0/1 = single device; d > 1 splits the "
+                         "O(E*n) carries into d shards, shard p on "
+                         "cuda:(p mod the card count))")
     rn.add_argument("--consensus_interval", type=int, default=None,
                     help="min milliseconds between consensus passes "
                          "(0 = after every sync, the reference cadence; "

@@ -5,25 +5,29 @@
   synthetic random-gossip DAG, as (fn, args) with the args on the
   device.
 - dryrun_multichip(n_devices, device=None): the multi-device consensus
-  step as n_devices rank processes (parallel.spawn_ranks), one spawn
-  for all of its parts:
+  step, parts (a), (b) and (d) as n_devices rank processes
+  (parallel.spawn_ranks, one spawn), part (c) in the calling process:
   (a) replica-parallel consensus: every rank replays the whole DAG's
       consensus, and the ranks agree (the pmax of a digest of the
       order equals its pmin);
   (b) the full pipeline memory-sharded over the ranks (ops/sharded.py),
       equal to the single-device oracle at n = 64, e = max(5000, 24·d);
+  (c) the live node's IncrementalEngine with its O(E·n) carries split
+      into d shards under one controller (ops/mesh.py, Config.
+      engine_mesh), in the calling process after the ranks: n = 16 (or
+      2·d), e = 600 in batches of 97, capacity 64, block 64, k_capacity
+      8, every RunDelta, the rounds, round received and fame equal to
+      the single-device engine's, and the coordinate table physically
+      partitioned (d shards whose sizes sum to the whole, none whole).
+      JAX gets it by placing the engine's carries with NamedSharding
+      and letting GSPMD partition the jitted kernels; the port's engine
+      loops over its shards itself;
   (d) for an even d >= 4, the 2 x d/2 ("dcn", "ici") mesh
       (parallel.mesh_axis): its composite axis's a-major index is each
       rank's. Its collectives run over the mesh's ranks flattened, the
       whole group in rank order, so the composite axis is the 1-D axis
       of (b), and (b)'s run is already the sharded pipeline on it; (d)
       adds the layout check, not a second run.
-  Part (c) of __graft_entry__.py, the live node's IncrementalEngine
-  with mesh-resident carries, is left out: JAX gets it by placing the
-  engine's carries with NamedSharding and letting GSPMD partition the
-  same jitted kernels, and PyTorch has no compiler that partitions the
-  engine's kernel launches and scatters; it needs an explicit SPMD
-  engine on parallel.ShardAxis (ROADMAP A12b).
 
 The ranks run gloo on the CPU and wherever d ranks share fewer than d
 GPUs, NCCL with a GPU for each rank (default_backend).
@@ -39,6 +43,8 @@ import torch
 
 from .devices import resolve_device
 from .ops.dag import synthetic_dag
+from .ops.incremental import IncrementalEngine
+from .ops.mesh import engine_mesh_devices
 from .ops.pipeline import consensus_pipeline, run_pipeline
 from .ops.sharded import dag_arrays, oracle_equal, run_sharded
 from .parallel import mesh_axis, spawn_ranks
@@ -85,15 +91,60 @@ def _dryrun_rank(rank, axis, replica, run, mesh, device):
     return {"agree": bool(hi == lo), "rr": rr.cpu().numpy(), "sharded": sharded}
 
 
+def engine_mesh_check(n_devices: int, device) -> dict:
+    """Part (c) (module docstring) in this process, on `device`: the
+    shards go where a node's Config.engine_mesh puts them (cuda:(p mod
+    the card count), or the device itself off CUDA). Raises
+    AssertionError on a mismatch; returns the sizes, the seconds of
+    each engine and the decided events."""
+    dev = resolve_device(device)
+    n3 = 16 if 16 % n_devices == 0 else 2 * n_devices
+    e3, bs3 = 600, 97
+    dag, _ = synthetic_dag(n3, e3, seed=5)
+    kw = dict(capacity=64, block=64, k_capacity=8)
+    ref = IncrementalEngine(n3, device=dev, **kw)
+    eng = IncrementalEngine(n3, mesh=engine_mesh_devices(n_devices, n3, dev) or [dev], **kw)
+    seconds = {"single": 0.0, "mesh": 0.0}
+    try:
+        for k in range(0, e3, bs3):
+            hi = min(k + bs3, e3)
+            deltas = []
+            for name, g in (("single", ref), ("mesh", eng)):
+                g.append_batch(dag.self_parent[k:hi], dag.other_parent[k:hi],
+                               dag.creator[k:hi], dag.index[k:hi], dag.coin[k:hi],
+                               np.arange(k, hi))
+                t0 = time.perf_counter()
+                deltas.append(g.run())
+                seconds[name] += time.perf_counter() - t0
+            if deltas[0] != deltas[1]:
+                raise AssertionError(f"mesh engine's RunDelta of events [{k}, {hi}) "
+                                     "!= single-device")
+    finally:
+        ref.close()
+        eng.close()
+    for name in ("rounds", "rr", "famous"):
+        if not np.array_equal(getattr(eng, name), getattr(ref, name)):
+            raise AssertionError(f"mesh engine {name} != single-device")
+    la_total = (ref.cap + 1) * n3
+    per_shard = [t.numel() for t in eng.shards("_la")]
+    if len(per_shard) != n_devices or sum(per_shard) != la_total or (
+            n_devices > 1 and max(per_shard) >= la_total):
+        raise AssertionError(f"mesh engine coordinate table is not partitioned: {per_shard}")
+    return {"n": n3, "e": e3, "batch": bs3, "shards": n_devices,
+            "la_shard_elems": per_shard, "seconds": seconds,
+            "decided": int((eng.rr[:e3] >= 0).sum())}
+
+
 def dryrun_multichip(n_devices: int, device=None, timeout_s: float = 900.0):
     """Run parts (a), (b) and (d) (module docstring) on n_devices ranks
-    on `device` (CUDA unless the caller names another) and raise
-    AssertionError where a part fails. Prints one line and returns a
-    record: the backend, the seconds of the spawn and of the sharded
-    run (the slowest rank), the decided events and the oracle's last
-    round, the collectives a rank made, the ranks' host seconds in them,
-    bytes through host memory and peak device memory, each rank's
-    strongly-see launches by site, and (d)'s mesh."""
+    on `device` (CUDA unless the caller names another), then part (c)
+    in this process, and raise AssertionError where a part fails.
+    Prints one line and returns a record: the backend, the seconds of
+    the spawn and of the sharded run (the slowest rank), the decided
+    events and the oracle's last round, the collectives a rank made,
+    the ranks' host seconds in them, bytes through host memory and peak
+    device memory, each rank's strongly-see launches by site, (d)'s
+    mesh and (c)'s engine_mesh_check record."""
     dev = resolve_device(device)
     backend = default_backend(n_devices, dev)
     small, _ = synthetic_dag(4, 64, seed=0)
@@ -121,14 +172,16 @@ def dryrun_multichip(n_devices: int, device=None, timeout_s: float = 900.0):
     if bad is not None:
         raise AssertionError(f"sharded pipeline {bad} != oracle")
     decided = int((ref[4] >= 0).sum())
+    engine = engine_mesh_check(n_devices, dev)
     print(f"dryrun_multichip ok: {n_devices} ranks ({backend}, {dev.type}), "
           f"replica-parallel consensus agreed, sharded pipeline == oracle "
           f"({decided} consensus events)"
-          + (f", 2x{n_devices // 2} dcn*ici mesh index a-major" if two_level else ""))
+          + (f", 2x{n_devices // 2} dcn*ici mesh index a-major" if two_level else "")
+          + f", {n_devices}-shard engine == single-device ({engine['decided']} decided)")
     return {
         "ranks": n_devices, "backend": backend, "device": str(dev), "n": n2, "e": dag.e,
         "decided": decided, "max_round": int(ref[0].max()), "spawn_s": spawn_s,
-        "mesh": mesh,
+        "mesh": mesh, "engine_mesh": engine,
         "run": {"seconds": max(r["sharded"]["seconds"] for r in res),
                 "host_bytes": [r["sharded"]["host_bytes"] for r in res],
                 "collectives": res[0]["sharded"]["collectives"],

@@ -90,8 +90,9 @@ class Config:
     # "host" (incremental reference-semantics Python).
     engine: str = "torch"
     # Devices for the torch engine's resident state: 0/1 = single
-    # device, the only layout the port has; d > 1 is refused until the
-    # engine takes a mesh (ROADMAP A12b).
+    # device; d > 1 splits the engine's O(E·n) carries into d shards
+    # under one controller (ops/mesh.py), shard p on cuda:(p mod the
+    # card count), so DAG capacity scales with local cards.
     engine_mesh: int = 0
     # Minimum seconds between consensus passes. 0 = reference behavior
     # (RunConsensus after every sync, node/node.go:467-487). With the

@@ -70,11 +70,15 @@ class Core:
             # pass "cpu"). The kernel library builds into build/kernels/
             # at first use; there is no compile cache to point anywhere.
             from ..hashgraph.torch_graph import TorchHashgraph
+            from ..ops.mesh import engine_mesh_devices
 
-            if engine_mesh and engine_mesh > 1:
-                raise ValueError(
-                    f"engine_mesh={engine_mesh}: the torch engine holds its "
-                    "state on one device and takes no mesh (ROADMAP A12b)")
+            # The participant columns shard over the mesh, so d shrinks
+            # to the largest divisor of the validator count (with a
+            # warning) rather than refusing to boot; shard p goes on
+            # cuda:(p mod the card count), so shards may share a card.
+            opts = engine_opts or {}
+            mesh = engine_mesh_devices(engine_mesh, len(participants),
+                                       opts.get("device"))
             # Pre-size the engine so steady operation never crosses a
             # growth threshold: every capacity/chain-bucket doubling
             # reallocates and copies the engine's tables while the
@@ -84,7 +88,6 @@ class Core:
             # buckets scale down with n^2 so large-validator nodes keep
             # the same budget.
             n_p = len(participants)
-            opts = engine_opts or {}
             cap = opts.get("capacity", 65536)
             k_cap = opts.get(
                 "k_capacity",
@@ -92,7 +95,7 @@ class Core:
             self.hg: Hashgraph = TorchHashgraph(
                 participants, store, commit_callback,
                 capacity=cap, block=opts.get("block", 512),
-                k_capacity=k_cap, prewarm=engine_prewarm,
+                k_capacity=k_cap, mesh=mesh, prewarm=engine_prewarm,
                 device=opts.get("device"))
         elif engine == "host":
             self.hg = Hashgraph(participants, store, commit_callback)

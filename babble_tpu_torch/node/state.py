@@ -46,10 +46,12 @@ class StateMachine:
         # Named threads feed the per-thread CPU attribution and the
         # flame profiler (telemetry/threadcpu.py, telemetry/profiler.py).
         t = threading.Thread(target=f, daemon=True, name=name)
+        # Started before it is registered: wait_routines joins every
+        # thread it finds, and joining one not yet started raises.
+        t.start()
         with self._lock:
             self._threads = [x for x in self._threads if x.is_alive()]
             self._threads.append(t)
-        t.start()
 
     def wait_routines(self, timeout: float = 5.0) -> None:
         """Join outstanding routines within a TOTAL timeout budget (a

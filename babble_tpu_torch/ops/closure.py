@@ -45,16 +45,22 @@ def make_block_body(self_parent, other_parent, creator, index, root_base,
     """The per-block closure step over [E_pad+1]-shaped inputs. Returns
     body(b, la, rb), which writes block b's rows of `la` and `rb` in
     place (each block reads only rows of earlier blocks) and returns
-    them."""
+    them.
+
+    The step has two halves, also reachable as body.prep(b, rb) and
+    body.apply(blk, la, col0): prep builds the block's reachability
+    closure (per block, not per column) and writes its rb rows; apply
+    writes its la rows for the columns la holds, [col0, col0 +
+    la.shape[1]). Each column of la is a max over the reached rows of
+    that same column, so a column-sharded table (ops/mesh.py) runs apply
+    on each shard with one prep, and no exchange."""
     dev = self_parent.device
     e_pad = self_parent.shape[0] - 1
     log2b = max(int(np.ceil(np.log2(block))), 1)
-    chunks = _apply_chunks(block, n)
-    rows_per_chunk = block // chunks
     eye = torch.eye(block, dtype=torch.float32, device=dev)
     rows = torch.arange(block, device=dev)
 
-    def body(b, la, rb):
+    def prep(b, rb):
         s = b * block
         sp = self_parent[s:s + block]
         op = other_parent[s:s + block]
@@ -79,22 +85,45 @@ def make_block_body(self_parent, other_parent, creator, index, root_base,
             reach = torch.clamp(reach @ reach, max=1.0)
         reach = reach > 0.5
 
-        # Base rows: external-parent coordinates + own slot.
+        # Base rows come from the external parents; rb's own.
         ext_sp = torch.where(sp_int | (sp < 0), e_pad, sp)
         ext_op = torch.where(op_int | (op < 0), e_pad, op)
-        base = torch.maximum(la[ext_sp], la[ext_op])
-        base[rows, cr] = torch.maximum(base[rows, cr], idx)
         base_rb = torch.maximum(torch.maximum(rb[ext_sp], rb[ext_op]), rb0)
+        rb[s:s + block] = torch.where(reach, base_rb[None, :], -1).amax(1)
+        return s, cr, idx, reach, ext_sp, ext_op, rows
+
+    def apply(blk, la, col0=0):
+        if la.device != blk[3].device:
+            blk = blk[:1] + tuple(t.to(la.device) for t in blk[1:])
+        s, cr, idx, reach, ext_sp, ext_op, rws = blk
+        w = la.shape[1]
+        # Base rows: external-parent coordinates + own slot (written
+        # only where the creator's column is one of la's).
+        base = torch.maximum(la[ext_sp], la[ext_op])
+        if w == n:
+            base[rws, cr] = torch.maximum(base[rws, cr], idx)
+        else:
+            own = (cr >= col0) & (cr < col0 + w)
+            col = torch.clamp(cr - col0, 0, w - 1)
+            cur = base[rws, col]
+            base[rws, col] = torch.where(own, torch.maximum(cur, idx), cur)
 
         # Apply the closure: out[i] = max over reached j of base[j].
+        chunks = _apply_chunks(block, w)
+        rows_per_chunk = block // chunks
         for c in range(chunks):
             r0 = c * rows_per_chunk
             sel = reach[r0:r0 + rows_per_chunk]
             la[s + r0:s + r0 + rows_per_chunk] = torch.where(
                 sel[:, :, None], base[None, :, :], -1).amax(1)
-        rb[s:s + block] = torch.where(reach, base_rb[None, :], -1).amax(1)
+        return la
+
+    def body(b, la, rb):
+        apply(prep(b, rb), la)
         return la, rb
 
+    body.prep = prep
+    body.apply = apply
     return body
 
 

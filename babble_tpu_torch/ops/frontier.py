@@ -34,6 +34,7 @@ import torch
 
 from . import hopper_kernels
 from .kernels import INT32_MAX, witness_rows
+from .mesh import count_below, take_chains
 
 I32 = torch.int32
 
@@ -128,15 +129,34 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
     C1). The skip correction is one more launch. `fd` is dense [E, n]
     or a row view (kernels.witness_rows): a view's rows are gathered
     once per round, for the skip correction (the candidates'), and the
-    next round's probe reuses them."""
+    next round's probe reuses them.
+
+    The incremental engine's mesh (ops/mesh.py) gives the chain tables
+    (chain_la, chain_rbase, chain) as lists of chain shards and la as a
+    mesh.ColumnShards: then each probe is one TALLY launch per chain
+    shard, on the shard's own chain_la rows against the replicated
+    witness rows, the tallies concatenated in chain order, and the
+    skip correction's launch reads its candidates' whole-width la
+    rows."""
     dev = la.device
-    k_cap = chain_la.shape[1]
+    shards = chain_la if isinstance(chain_la, (list, tuple)) else None
+    k_cap = (shards[0] if shards else chain_la).shape[1]
     width = k_cap if k_bound is None else min(int(k_bound), k_cap)
     ways = max(1, min(probe_ways(n), width))
     steps = search_steps(width, ways)
     lanes = torch.arange(n, device=dev)
-    chain_rows = chain_la.view(n * k_cap, n)  # row c*K + k = chain_la[c, k]
-    chain_row0 = (torch.arange(n, dtype=torch.int64, device=dev) * k_cap)[:, None]
+    if shards is None:
+        chain_rows = chain_la.view(n * k_cap, n)  # row c*K + k = chain_la[c, k]
+        chain_row0 = (torch.arange(n, dtype=torch.int64, device=dev) * k_cap)[:, None]
+    else:
+        # per shard: its chain_la rows, its chains' first row ids and
+        # one witness row a lane
+        w = shards[0].shape[0]
+        probes = [(part.view(w * k_cap, n),
+                   (torch.arange(w, dtype=torch.int64, device=part.device) * k_cap)[:, None],
+                   torch.zeros((w * ways,), dtype=I32, device=part.device))
+                  for part in shards]
+        x_skip = lanes.to(I32)  # the skip correction's rows, gathered in order
     wrow_probe = torch.zeros((n * ways,), dtype=I32, device=dev)  # one witness row
     wrow0 = wrow_probe[:n]
     # A row view's witness rows of the last round's candidates: the next
@@ -148,7 +168,10 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         # k1: first chain position whose propagated root contribution
         # reaches rho = #{k : chain_rbase[c, k] < rho} (pads are
         # INT32_MAX and never count).
-        k1 = (chain_rbase < rho).sum(1, dtype=I32)
+        if shards is None:
+            k1 = (chain_rbase < rho).sum(1, dtype=I32)
+        else:
+            k1 = count_below(chain_rbase, rho, dev)
 
         # k2: first position strongly seeing >= sm of wt_prev.
         if last.get("wt_row") is wt_prev:
@@ -156,15 +179,26 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
             wt_tab = torch.where(wt_prev[None] >= 0, last["cand_tab"], -1)
         else:
             f_tab, wt_tab = witness_rows(fd, wt_prev[None])  # [1, n] row, -1 none
+        if shards is not None:  # the witness rows on each shard's device
+            f_w = [(f_tab.to(rows.device), wt_tab.to(rows.device)) for rows, _, _ in probes]
 
         def sees_sm(pos):
             """ok[c, j] = chain_la[c, pos[c, j]] strongly sees >= sm
             valid witnesses. A position past the chain's end reads an
             INT32_MAX row, which would strongly see any witness;
             first_true probes below hi <= chain_len only."""
-            xs = (chain_row0 + torch.clamp(pos, 0, k_cap - 1)).to(I32).view(-1)
-            tally = hopper_kernels.strongly_see_gathered(
-                chain_rows, xs, f_tab, wt_tab, wrow_probe, sm, "tally")
+            if shards is None:
+                xs = (chain_row0 + torch.clamp(pos, 0, k_cap - 1)).to(I32).view(-1)
+                tally = hopper_kernels.strongly_see_gathered(
+                    chain_rows, xs, f_tab, wt_tab, wrow_probe, sm, "tally")
+            else:
+                tallies = []
+                for p, ((rows, row0, wrow), (f_p, w_p)) in enumerate(zip(probes, f_w)):
+                    pos_p = torch.clamp(pos[p * w:(p + 1) * w].to(rows.device), 0, k_cap - 1)
+                    xs = (row0 + pos_p).to(I32).view(-1)
+                    tallies.append(hopper_kernels.strongly_see_gathered(
+                        rows, xs, f_p, w_p, wrow, sm, "tally").to(dev))
+                tally = torch.cat(tallies)
             return tally.view(n, ways) >= sm
 
         # search in [0, chain_len]; chain_len means no position
@@ -174,16 +208,22 @@ def make_round_step(chain_la, chain_rbase, chain_len, la, fd, rbase, chain,
         fr = torch.maximum(torch.minimum(k1, k2), fr_prev)
         cand_valid = fr < chain_len
         fr_c = torch.where(cand_valid, fr, k_cap)
+        fr_k = torch.clamp(fr, 0, k_cap - 1)
         cand = torch.where(
-            cand_valid, chain[lanes, torch.clamp(fr, 0, k_cap - 1)], -1)
+            cand_valid,
+            chain[lanes, fr_k] if shards is None else take_chains(chain, fr_k), -1)
 
         # Skip correction: candidate's true round exceeds rho? The
         # invalid candidates (-1) are masked as witnesses; as rows their
         # tally is dropped by wt_row's cand_valid.
         safe = torch.where(cand_valid, cand, 0)
         f_tab, cand_tab = witness_rows(fd, cand[None])
+        if shards is None:
+            x_tab, xs = la, safe
+        else:
+            x_tab, xs = la[safe], x_skip
         tally = hopper_kernels.strongly_see_gathered(
-            la, safe, f_tab, cand_tab, wrow0, sm, "tally")
+            x_tab, xs, f_tab, cand_tab, wrow0, sm, "tally")
         rb_c = torch.where(cand_valid, rbase[safe], -1)
         skip = (rb_c >= rho + 1) | (tally >= sm)
         wt_row = torch.where(cand_valid & ~skip, cand, -1)

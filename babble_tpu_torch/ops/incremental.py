@@ -46,9 +46,22 @@ per round on the host (frontier.frontier_sweep_impl); that read happens
 on the staging worker, never on the caller's thread unless a redo runs
 there.
 
-Left out, with the roadmap items that own them: the multi-device mesh
-placement (the constructor raises on `mesh`; A12b), and the compiled cost
-report of the JAX package (XLA cost analysis; device telemetry).
+The mesh (`mesh=[device, ...]`, d shards): the JAX package places its
+O(E·n) carries with NamedSharding and lets GSPMD partition the same
+jitted kernels. Here the engine stays one object under one controller
+(ops/mesh.py): the coordinate table is held as d column shards, the
+chain tables and the rank cube as d chain shards, and each stage loops
+over the shards. Closure runs on each column shard with the block's
+reachability computed once; the fd fold gathers the batch's la rows
+whole-width (the pass's one exchange outside the epilogue) and each
+chain shard folds its own chains; the epilogue reads la and fd through
+row views that concatenate the shards' slices, and the frontier probe
+runs once per chain shard. The 1-D event columns and the result
+carries stay whole on the controller (shard 0's device). A single
+device, or no mesh, is the unsharded engine.
+
+Left out: the compiled cost report of the JAX package (XLA cost
+analysis; device telemetry).
 """
 
 from __future__ import annotations
@@ -68,6 +81,7 @@ import torch
 from ..devices import resolve_device
 from . import closure, frontier, hopper_kernels, kernels
 from .kernels import FAME_TRUE, FAME_UNDEFINED, INT32_MAX
+from .mesh import ColumnShards, mesh_devices, nbytes, take_chains
 
 I32 = torch.int32
 
@@ -145,10 +159,19 @@ def _set_where(dst, idx, values, ok):
 def _closure_update(la, rb, self_parent, other_parent, creator, index,
                     root_base, b0, b1, *, n, block):
     """Run the closure block body over blocks [b0, b1) in place on the
-    coordinate carries la [cap+1, n] / rb [cap+1]."""
+    coordinate carries la [cap+1, n] / rb [cap+1]. A list la is the
+    table's column shards, in column order: each block's reachability
+    is computed once and applied to every shard."""
     body = closure.make_block_body(
         self_parent, other_parent, creator, index, root_base,
         n=n, block=block)
+    if isinstance(la, list):
+        w = la[0].shape[1]
+        for b in range(b0, b1):
+            blk = body.prep(b, rb)
+            for p, part in enumerate(la):
+                body.apply(blk, part, p * w)
+        return la, rb
     for b in range(b0, b1):
         la, rb = body(b, la, rb)
     return la, rb
@@ -170,12 +193,19 @@ def _pad_cols(a, *, cols, fill, axis=-1):
     return torch.cat([a, pad], axis)
 
 
+def _each(x, fn, **kw):
+    """fn(x, **kw), or [fn(t, **kw) for each shard] for a sharded carry."""
+    return [fn(t, **kw) for t in x] if isinstance(x, list) else fn(x, **kw)
+
+
 def _pad_ranks(ranks, len_counted, *, cols):
-    """Grow the fd rank cube [n, n, K] -> [n, n, K+cols]. Every counted
-    la value is a chain position < K <= t for the new thresholds t, so
-    the new columns are exactly the per-chain counted length."""
-    n = ranks.shape[0]
-    pad = len_counted.to(ranks.dtype)[:, None, None].expand(n, n, cols)
+    """Grow the fd rank cube [n, n, K] -> [n, n, K+cols] (or a chain
+    shard of it, [chains, n, K], with its chains' len_counted). Every
+    counted la value is a chain position < K <= t for the new
+    thresholds t, so the new columns are exactly the per-chain counted
+    length."""
+    c, n = ranks.shape[:2]
+    pad = len_counted.to(ranks.dtype)[:, None, None].expand(c, n, cols)
     return torch.cat([ranks, pad], 2)
 
 
@@ -222,12 +252,21 @@ def _tables_chain_write(chain_la, chain_rb, la, rb, newtab, newpos,
     la_new = la[ids]  # [n, m, n]
     rb_new = rb[ids]  # [n, m]
     la_eff = torch.where(valid[:, :, None], la_new, INT32_MAX)
+    _write_chain_rows(chain_la, chain_rb, la_eff, torch.where(valid, rb_new, INT32_MAX),
+                      valid, newpos, k=k)
+    return chain_la, chain_rb, la_eff
+
+
+def _write_chain_rows(chain_la, chain_rb, la_eff, rb_eff, valid, newpos, *, k):
+    """chain_la[c, newpos[c, j]] = la_eff[c, j] (chain_rb likewise) in
+    place, for the valid lanes at positions inside the table; the
+    chains are the rows of `valid` [chains, m]."""
+    c, m = valid.shape
     ok = valid & (newpos < k)
-    crows = torch.arange(n, device=newtab.device)[:, None].expand(n, m)
+    crows = torch.arange(c, device=valid.device)[:, None].expand(c, m)
     idx = (crows, newpos.long())
     _set_where(chain_la, idx, la_eff, ok)
-    _set_where(chain_rb, idx, torch.where(valid, rb_new, INT32_MAX), ok)
-    return chain_la, chain_rb, la_eff
+    _set_where(chain_rb, idx, rb_eff, ok)
 
 
 def _tables_update_hist(ranks, chain_la, chain_rb, la, rb, newtab,
@@ -244,13 +283,20 @@ def _tables_update_hist(ranks, chain_la, chain_rb, la, rb, newtab,
     k = ranks.shape[2]
     chain_la, chain_rb, la_eff = _tables_chain_write(
         chain_la, chain_rb, la, rb, newtab, newpos, n=n, m=m, k=k)
-    # Clip BEFORE the +1: INT32_MAX + 1 would wrap into bucket 0.
-    b = torch.clamp(la_eff, -1, k - 1) + 1  # [n(c), m, n(i)] buckets
-    h = torch.zeros((n, n, k + 1), dtype=I32, device=ranks.device)
-    h.scatter_add_(2, b.permute(0, 2, 1).long(),
-                   torch.ones((n, n, m), dtype=I32, device=ranks.device))
-    ranks += torch.cumsum(h, 2, dtype=I32)[:, :, :k]
+    _fold_ranks(ranks, la_eff)
     return ranks, chain_la, chain_rb
+
+
+def _fold_ranks(ranks, la_eff):
+    """ranks[c, i, t] += #{j : la_eff[c, j, i] < t}, in place, for the
+    chains c of ranks [chains, n, K] and la_eff [chains, m, n]."""
+    k = ranks.shape[2]
+    # Clip BEFORE the +1: INT32_MAX + 1 would wrap into bucket 0.
+    b = torch.clamp(la_eff, -1, k - 1) + 1  # [c, m, n(i)] buckets
+    bt = b.permute(0, 2, 1)  # [c, n(i), m]
+    h = torch.zeros(bt.shape[:2] + (k + 1,), dtype=I32, device=ranks.device)
+    h.scatter_add_(2, bt.long(), torch.ones(bt.shape, dtype=I32, device=ranks.device))
+    ranks += torch.cumsum(h, 2, dtype=I32)[:, :, :k]
 
 
 class _FdRows:
@@ -259,20 +305,26 @@ class _FdRows:
     straight from the resident rank cube. Every consumer of fd in the
     engine (frontier sweep, fame, consensus timestamps) reads row
     gathers only, so the dense [cap, n] table (512 MB per pass at the
-    n=1024 north star) is never built."""
+    n=1024 north star) is never built. A list `ranks` is the cube's
+    chain shards, in chain order: each gives its chains' columns of the
+    rows, concatenated on the creator vector's device."""
 
     def __init__(self, ranks, chain_len, creator, index):
         self.ranks = ranks
         self.chain_len = chain_len
         self.creator = creator
         self.index = index
-        self.k = ranks.shape[2]
+        self.k = (ranks[0] if isinstance(ranks, list) else ranks).shape[2]
 
     def __getitem__(self, ids):
         ca = self.creator[ids]
         ix = self.index[ids]
         ia = torch.clamp(ix, 0, self.k - 1)
-        raw = torch.movedim(self.ranks[:, ca, ia], 0, -1)  # [*S, n]
+        if isinstance(self.ranks, list):
+            raw = torch.cat([torch.movedim(r[:, ca.to(r.device), ia.to(r.device)], 0, -1)
+                             .to(ca.device) for r in self.ranks], -1)
+        else:
+            raw = torch.movedim(self.ranks[:, ca, ia], 0, -1)  # [*S, n]
         fd = torch.where(raw < self.chain_len, raw, INT32_MAX)
         return torch.where((ix >= 0)[..., None], fd, INT32_MAX)
 
@@ -346,7 +398,7 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     window's live rows only and the round-received sweep over row
     chunks."""
     dev = la.device
-    k = chain_th.shape[1]
+    k = (chain_th[0] if isinstance(chain_th, list) else chain_th).shape[1]
     fd = _FdRows(ranks, chain_len, creator, index)
 
     def _mark(name):
@@ -477,9 +529,13 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     s_cnt = s_mask.sum(1, dtype=I32)
     valid_t = fd_sel <= idxw_sel  # first descendant reaches the witness
     fd_pos = torch.clamp(fd_sel, 0, k - 1)
-    rows_n = torch.arange(n, device=dev)[None, :]
-    ts_hi = chain_th[rows_n, fd_pos]
-    ts_lo = chain_tl[rows_n, fd_pos]
+    if isinstance(chain_th, list):
+        ts_hi = take_chains(chain_th, fd_pos)
+        ts_lo = take_chains(chain_tl, fd_pos)
+    else:
+        rows_n = torch.arange(n, device=dev)[None, :]
+        ts_hi = chain_th[rows_n, fd_pos]
+        ts_lo = chain_tl[rows_n, fd_pos]
     # ZERO_TIME for unreached witnesses (sorts first); INT32_MAX pads
     # the non-famous lanes to the end.
     hi_v = torch.where(valid_t, ts_hi, ZERO_TS_HI)
@@ -527,8 +583,8 @@ def _analyze_cost(args, kw, outputs) -> dict:
       round-received see counts) + rcap bp (the batch's round compares)
       + cb n (3 + ceil(log2 n)) (the timestamp lanes' gathers and
       median sort);
-    - bytes_accessed: every tensor input read once and every output
-      written once;
+    - bytes_accessed: every tensor input read once (a sharded table:
+      each shard) and every output written once;
     - output_bytes: the exact bytes of the outputs (the packed buffer,
       rounds_out and rr_out);
     - temp_bytes: the largest intermediates the pass builds, 4 rw n^2
@@ -543,8 +599,7 @@ def _analyze_cost(args, kw, outputs) -> dict:
         au = int(args[27].shape[0])  # und_ids
         log_n = max(1, (n - 1).bit_length())
         out_bytes = sum(t.numel() * t.element_size() for t in outputs)
-        in_bytes = sum(t.numel() * t.element_size() for t in args
-                       if isinstance(t, torch.Tensor))
+        in_bytes = sum(nbytes(t) for t in args)
         t_rows = kernels.chunk_width(iw, n * au, budget=_RR_ELEMS)
         return {"consensus_fused": {
                     "flops": float(2 * n ** 3 * (rw + tw) + 2 * iw * n * au
@@ -615,6 +670,14 @@ class IncrementalEngine:
 
     `device` is CUDA unless the caller names another (the tests pass
     "cpu", where the strongly-see kernel takes its plain version).
+
+    `mesh` (a sequence of d devices, repeats allowed, or a 2 x d/2 grid
+    given a-major; see ops/mesh.py) splits the O(E·n) carries into d
+    shards, shard p on the p-th device: the coordinate table by
+    participant column, the chain tables and the rank cube by chain.
+    The controller, which holds everything else, is the mesh's first
+    device; `device`, when given too, must be it. `n` must divide over
+    the d shards. `shards(name)` lists a carry's shards.
     """
 
     def __init__(self, n: int, root_round=None, *, capacity: int = 256,
@@ -623,10 +686,17 @@ class IncrementalEngine:
                  mesh=None, device=None):
         if n < 1:
             raise ValueError("need at least one participant")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device mesh placement is not ported yet (ROADMAP A12b)")
-        self.device = resolve_device(device)
+        devs = None if mesh is None else mesh_devices(mesh)
+        if devs is not None and device is not None and mesh_devices([device])[0] != devs[0]:
+            raise ValueError(f"device {device} is not the mesh's first device {devs[0]}")
+        self.device = resolve_device(device) if devs is None else devs[0]
+        # Mesh placement: None is the unsharded engine (one device).
+        self._mesh: Optional[List[torch.device]] = None
+        if devs is not None and len(devs) > 1:
+            if n % len(devs):
+                raise ValueError(
+                    f"participants {n} must divide over {len(devs)} devices")
+            self._mesh = devs
         self.n = n
         self.sm = 2 * n // 3 + 1
         self.block = block
@@ -664,17 +734,36 @@ class IncrementalEngine:
         self.cts_ns = np.zeros(self.cap, np.int64)
 
         # One stream for every device op of this engine, on whichever
-        # thread issues it (torch's current stream is per thread).
+        # thread issues it (torch's current stream is per thread); a
+        # mesh has one on each of its cards, so a pass's work on every
+        # shard is ordered as on one card.
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        self._streams = [] if self._stream is None else [self._stream] + [
+            torch.cuda.Stream(d) for d in dict.fromkeys(self._mesh or ())
+            if d != self.device]
 
         # Device carries: coordinates plus everything the per-sync
         # pipeline would otherwise re-upload or recompute from scratch.
+        # Under a mesh, the column- and chain-sharded ones are lists of
+        # their d shards (ops/mesh.py).
         def full(shape, fill, dtype=I32):
             return torch.full(shape, fill, dtype=dtype, device=self.device)
 
+        def by_col(rows, fill):
+            if self._mesh is None:
+                return full((rows, n), fill)
+            w = n // len(self._mesh)
+            return [torch.full((rows, w), fill, dtype=I32, device=d) for d in self._mesh]
+
+        def by_chain(tail, fill):
+            if self._mesh is None:
+                return full((n,) + tail, fill)
+            w = n // len(self._mesh)
+            return [torch.full((w,) + tail, fill, dtype=I32, device=d) for d in self._mesh]
+
         with self._on_stream():
-            self._la = full((c1, n), -1)
+            self._la = by_col(c1, -1)
             self._rb = full((c1,), -1)
             self._sp_d = full((c1,), -1)
             self._op_d = full((c1,), -1)
@@ -682,18 +771,18 @@ class IncrementalEngine:
             self._idx_d = full((c1,), -1)
             self._coin_d = full((c1,), 0, torch.int8)
             self._rb0_d = full((c1,), -1)
-            self._chain_d = full((n, self.kcap), -1)
+            self._chain_d = by_chain((self.kcap,), -1)
             # Resident split-int64 timestamp planes (see _ts_split).
-            self._chain_th = full((n, self.kcap), 0)
-            self._chain_tl = full((n, self.kcap), 0)
+            self._chain_th = by_chain((self.kcap,), 0)
+            self._chain_tl = by_chain((self.kcap,), 0)
             # Resident consensus-result carries (committed post-pull).
             self._rounds_d = full((self.cap,), -1)
             self._rr_d = full((self.cap,), -1)
-            self._ranks = full((n, n, self.kcap), 0)
+            self._ranks = by_chain((n, self.kcap), 0)
             # chain_la/chain_rb stay resident: the frontier reads them
             # every round, and only the new chain suffix rows are written.
-            self._chain_la = full((n, self.kcap, n), INT32_MAX)
-            self._chain_rb = full((n, self.kcap), INT32_MAX)
+            self._chain_la = by_chain((self.kcap, n), INT32_MAX)
+            self._chain_rb = by_chain((self.kcap,), INT32_MAX)
         self._frozen_blocks = 0
         self._e_counted = 0
         self._len_counted = np.zeros(n, np.int32)
@@ -760,21 +849,39 @@ class IncrementalEngine:
     # -- device helpers ---------------------------------------------------
 
     def _on_stream(self):
-        """Context that makes the engine's stream current on this
-        thread (a no-op off CUDA)."""
+        """Context that makes the engine's streams current on this
+        thread, one on each card of its mesh (a no-op off CUDA)."""
         if self._stream is None:
             return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
+        stack = contextlib.ExitStack()
+        for st in self._streams:
+            stack.enter_context(torch.cuda.stream(st))
+        return stack
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device. On CUDA the copy goes
-        from pinned memory without blocking the host, ordered on the
-        current (engine) stream; the caching host allocator keeps the
-        pinned block until the copy has run."""
+    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """A host array on the engine's device (or on `device`, a mesh
+        shard's). On CUDA the copy goes from pinned memory without
+        blocking the host, ordered on the current (engine) stream; the
+        caching host allocator keeps the pinned block until the copy
+        has run."""
+        dev = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self._stream is None:
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(dev)
+        return t.pin_memory().to(dev, non_blocking=True)
+
+    def shards(self, name: str) -> List[torch.Tensor]:
+        """The shards of a device carry ("_la", "_chain_la", "_ranks",
+        ...), in column or chain order: d tensors under a mesh, the one
+        tensor otherwise."""
+        t = getattr(self, name)
+        return list(t) if isinstance(t, list) else [t]
+
+    def _shard_rows(self):
+        """(device, lo, hi) of each shard: its devices and its chains
+        (or columns) [lo, hi)."""
+        w = self.n // len(self._mesh)
+        return [(d, p * w, (p + 1) * w) for p, d in enumerate(self._mesh)]
 
     # -- append ------------------------------------------------------------
 
@@ -932,11 +1039,11 @@ class IncrementalEngine:
     @property
     def _cap_dev(self) -> int:
         """Device-side event capacity, derived from the carry shapes."""
-        return self._la.shape[0] - 1
+        return self.shards("_la")[0].shape[0] - 1
 
     @property
     def _kcap_dev(self) -> int:
-        return self._chain_d.shape[1]
+        return self.shards("_chain_d")[0].shape[1]
 
     def _sync_device(self, cap_t: Optional[int] = None,
                      kcap_t: Optional[int] = None) -> None:
@@ -951,7 +1058,7 @@ class IncrementalEngine:
             kcap_t = self.kcap
         while self._cap_dev < cap_t:
             rows = self._cap_dev  # double
-            self._la = _pad_rows(self._la, rows=rows, fill=-1)
+            self._la = _each(self._la, _pad_rows, rows=rows, fill=-1)
             self._rb = _pad_rows(self._rb, rows=rows, fill=-1)
             self._sp_d = _pad_rows(self._sp_d, rows=rows, fill=-1)
             self._op_d = _pad_rows(self._op_d, rows=rows, fill=-1)
@@ -965,15 +1072,20 @@ class IncrementalEngine:
             self._rr_d = _pad_rows(self._rr_d, rows=rows, fill=-1)
         while self._kcap_dev < kcap_t:
             cols = self._kcap_dev  # double
-            self._ranks = _pad_ranks(
-                self._ranks, self._upload(self._len_counted), cols=cols)
-            self._chain_la = _pad_cols(self._chain_la, cols=cols,
-                                       fill=INT32_MAX, axis=1)
-            self._chain_d = _pad_cols(self._chain_d, cols=cols, fill=-1)
-            self._chain_th = _pad_cols(self._chain_th, cols=cols, fill=0)
-            self._chain_tl = _pad_cols(self._chain_tl, cols=cols, fill=0)
-            self._chain_rb = _pad_cols(self._chain_rb, cols=cols,
-                                       fill=INT32_MAX)
+            if self._mesh is None:
+                self._ranks = _pad_ranks(
+                    self._ranks, self._upload(self._len_counted), cols=cols)
+            else:  # each shard pads with its own chains' counted lengths
+                self._ranks = [
+                    _pad_ranks(r, self._upload(self._len_counted[lo:hi], d), cols=cols)
+                    for r, (d, lo, hi) in zip(self._ranks, self._shard_rows())]
+            self._chain_la = _each(self._chain_la, _pad_cols, cols=cols,
+                                   fill=INT32_MAX, axis=1)
+            self._chain_d = _each(self._chain_d, _pad_cols, cols=cols, fill=-1)
+            self._chain_th = _each(self._chain_th, _pad_cols, cols=cols, fill=0)
+            self._chain_tl = _each(self._chain_tl, _pad_cols, cols=cols, fill=0)
+            self._chain_rb = _each(self._chain_rb, _pad_cols, cols=cols,
+                                   fill=INT32_MAX)
 
     def _ingest_batch(self, e: int, chain_len0: np.ndarray):
         """Stage the events appended since the last fold into the device
@@ -1023,11 +1135,22 @@ class IncrementalEngine:
             newpos[c, : l1 - l0] = np.arange(l0, l1)
             newhi[c, : l1 - l0], newlo[c, : l1 - l0] = _ts_split(ts_h[ids])
         self._newtab_d = self._upload(newtab)
-        self._newpos_d = self._upload(newpos)
         self._new_m = m
-        _chain_ingest(self._chain_d, self._chain_th, self._chain_tl,
-                      self._newtab_d, self._newpos_d, self._upload(newhi),
-                      self._upload(newlo), n=n, m=m)
+        if self._mesh is None:
+            self._newpos_d = self._upload(newpos)
+            _chain_ingest(self._chain_d, self._chain_th, self._chain_tl,
+                          self._newtab_d, self._newpos_d, self._upload(newhi),
+                          self._upload(newlo), n=n, m=m)
+            return
+        # Each chain shard scatters its own chains' rows only.
+        self._newpos_d = []
+        for p, (d, lo, hi) in enumerate(self._shard_rows()):
+            pos_p = self._upload(newpos[lo:hi], d)
+            self._newpos_d.append(pos_p)
+            _chain_ingest(self._chain_d[p], self._chain_th[p], self._chain_tl[p],
+                          self._upload(newtab[lo:hi], d), pos_p,
+                          self._upload(newhi[lo:hi], d), self._upload(newlo[lo:hi], d),
+                          n=hi - lo, m=m)
 
     def run(self, *, unlocked=None) -> RunDelta:
         """One synchronous incremental consensus pass: dispatch() +
@@ -1151,8 +1274,8 @@ class IncrementalEngine:
 
     def _sync(self) -> None:
         """Wait for the engine's device work (a no-op off CUDA)."""
-        if self._stream is not None:
-            self._stream.synchronize()
+        for st in self._streams:
+            st.synchronize()
 
     def _stage_pass(self, pp: PendingPass) -> None:
         """The staging half of a pass, run on the worker thread: device
@@ -1198,17 +1321,23 @@ class IncrementalEngine:
                         pp.idx_d, self._rb0_d, self._frozen_blocks, nb,
                         n=n, block=self.block)
         self._frozen_blocks = e // self.block
-        pp.la = self._la[:cap0]
+        if self._mesh is None:
+            pp.la = self._la[:cap0]
+        else:
+            pp.la = ColumnShards([t[:cap0] for t in self._la], self.device)
         pp.rb = self._rb[:cap0]
         _mark("coords")
 
         # 2. Fold the batch into the resident rank cube; fd is read as
         # row gathers from it inside the epilogue (_FdRows).
         if self._e_counted < e:
-            _tables_update_hist(
-                self._ranks, self._chain_la, self._chain_rb,
-                self._la, self._rb, self._newtab_d, self._newpos_d,
-                n=n, m=self._new_m)
+            if self._mesh is None:
+                _tables_update_hist(
+                    self._ranks, self._chain_la, self._chain_rb,
+                    self._la, self._rb, self._newtab_d, self._newpos_d,
+                    n=n, m=self._new_m)
+            else:
+                self._fold_shards()
             self._e_counted = e
             self._len_counted = chain_len0.copy()
         _mark("fd_fold")
@@ -1294,6 +1423,26 @@ class IncrementalEngine:
             self.phase_ns.get("stage", 0) + _t() - _phase_start
             - (self.phase_ns.get("c_dispatch", 0) - cd0))
         pp.dispatched_ns = _t()
+
+    def _fold_shards(self) -> None:
+        """The fd fold under a mesh: the batch's la rows gathered
+        whole-width from the column shards ([n, m, n], batch-sized: the
+        pass's one exchange outside the epilogue), then each chain
+        shard writes its chains' chain_la/chain_rb rows and folds its
+        slice of the rank cube, as _tables_update_hist does."""
+        la = ColumnShards(self._la, self.device)
+        newtab = self._newtab_d
+        valid = newtab >= 0
+        ids = torch.where(valid, newtab, la.shape[0] - 1)  # sentinel row, masked
+        la_eff = torch.where(valid[:, :, None], la[ids], INT32_MAX)
+        rb_eff = torch.where(valid, self._rb[ids], INT32_MAX)
+        k = self._kcap_dev
+        for p, (d, lo, hi) in enumerate(self._shard_rows()):
+            la_p = la_eff[lo:hi].to(d)
+            _write_chain_rows(self._chain_la[p], self._chain_rb[p], la_p,
+                              rb_eff[lo:hi].to(d), valid[lo:hi].to(d),
+                              self._newpos_d[p], k=k)
+            _fold_ranks(self._ranks[p], la_p)
 
     def _dispatch_fused(self, pp: PendingPass) -> None:
         """Build the window tables from host bookkeeping and enqueue the
@@ -1382,10 +1531,10 @@ class IncrementalEngine:
         dev = host = 0
         try:
             for v in vars(self).values():
-                if isinstance(v, torch.Tensor):
-                    dev += v.numel() * v.element_size()
-                elif isinstance(v, np.ndarray):
+                if isinstance(v, np.ndarray):
                     host += int(v.nbytes)
+                else:
+                    dev += nbytes(v)
         except Exception:  # noqa: BLE001
             return {"device_bytes": 0, "host_mirror_bytes": 0}
         out = {
@@ -1396,6 +1545,13 @@ class IncrementalEngine:
             "chain_capacity": self.kcap,
             "n": self.n,
         }
+        # A mesh's shards may share a card: the budget multiplies by the
+        # distinct devices, not the shards.
+        devices = 1
+        if self._mesh is not None:
+            devices = len(set(self._mesh))
+            out["mesh_shards"] = len(self._mesh)
+            out["mesh_devices"] = devices
         if self.device.type != "cuda":
             return out
         try:
@@ -1406,7 +1562,7 @@ class IncrementalEngine:
         except Exception:  # noqa: BLE001 - a scrape must not fail
             budget = 0
         if budget and dev > 0:
-            out["projected_max_peers"] = int(self.n * (budget / dev) ** 0.5)
+            out["projected_max_peers"] = int(self.n * ((budget * devices) / dev) ** 0.5)
         return out
 
     def _collect_pass(self, pp: PendingPass, unlocked) -> RunDelta:
@@ -1646,7 +1802,7 @@ class IncrementalEngine:
             hopper_kernels.build()
         scratch = IncrementalEngine(
             n, capacity=self.cap, block=self.block, k_capacity=self.kcap,
-            device=self.device)
+            mesh=self._mesh, device=self.device)
         heads = [-1] * n
         idx = [0] * n
         ts = 1_700_000_000_000_000_000

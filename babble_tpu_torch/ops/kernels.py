@@ -305,7 +305,10 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r, reads=None):
     (hopper_kernels.strongly_see_gathered) give them all first; past
     2^26 bytes of output they come in chunks of rounds. `fd` is dense
     or a row view (witness_rows): the launch reads the window's witness
-    rows either way.
+    rows either way. So is `la`: a row view (the incremental engine's
+    column-sharded table, ops/mesh.py) gives the window's witness rows
+    once, whole-width, and the launches and first-round votes read
+    those.
 
     A witness table with a leading view axis, wt [V, r, n] (ops/sim.py),
     gives famous [V, r, n]: the V*r slot rows of all views sweep
@@ -330,6 +333,11 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r, reads=None):
     idx_x = torch.where(wt_valid, index[wt_safe], -1)  # [V*r, n]
     per_launch = chunk_width(r - 1, v_n * n * n)  # voting rounds per launch
     f_tab, w_tab = witness_rows(fd, wt)
+    if isinstance(la, torch.Tensor):
+        x_tab, x_ids = la, wt_safe
+    else:  # slot row s*n + c holds witness wt[s, c]'s la row
+        x_tab = la[wt_safe.reshape(-1)]
+        x_ids = torch.arange(rows_n * n, dtype=I32, device=dev).view(rows_n, n)
     view = torch.arange(v_n, dtype=I32, device=dev)[:, None]  # [V, 1]
     # ss[v, q][y, x]: view v's round q+1 witness y strongly sees its
     # round q witness x (empty slots: y reads row 0 and is gated by
@@ -338,10 +346,10 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r, reads=None):
     blocks = []
     for j in range(1, r, per_launch):
         hi = min(j + per_launch, r)
-        xs = wt_safe.view(v_n, r, n)[:, j:hi].reshape(-1)
+        xs = x_ids.view(v_n, r, n)[:, j:hi].reshape(-1)
         wrow = (view * r + torch.arange(j - 1, hi - 1, dtype=I32, device=dev)).view(
             -1).repeat_interleave(n)
-        blocks.append(strongly_see_gathered(la, xs, f_tab, w_tab, wrow, sm, "matrix").view(
+        blocks.append(strongly_see_gathered(x_tab, xs, f_tab, w_tab, wrow, sm, "matrix").view(
             torch.bool).view(v_n, hi - j, n, n))
     ss = (blocks[0] if len(blocks) == 1 else torch.cat(blocks, 1)).view(-1, n, n)
 
@@ -356,7 +364,7 @@ def decide_fame(wt, la, fd, index, coin, *, n, sm, r, reads=None):
         y_valid = wt_valid[jr] & (rx + d < r)[:, None]  # [V*r, n(y)]
         active = y_valid[:, :, None] & wt_valid[:, None, :]  # [V*r, n(y), n(cx)]
         if d == 1:
-            vote = (la[wt_safe[jr]] >= idx_x[:, None, :]) & active
+            vote = (x_tab[x_ids[jr]] >= idx_x[:, None, :]) & active
         else:
             ssd = ss[jr - ss_off]  # [V*r, n(y), n(z)]
             # 0/1 float32 product: tallies are <= n < 2^24, exact in

@@ -145,7 +145,8 @@ line is not printed):
               north star; then entry.dryrun_multichip(8) on 8 gloo
               ranks (replica-parallel agreement, the sharded pipeline
               against the single-device oracle, the a-major layout of a
-              2 x 4 ("dcn", "ici") mesh). Config 5 equals the port's
+              2 x 4 ("dcn", "ici") mesh; then, in this process, its part
+              (c), phase mesh's (a)). Config 5 equals the port's
               single-device run_pipeline on the card and the JAX
               package's digest (GOLDEN_SHARDED_C5), and each rank's
               chain-sharded coordinates and event-sharded first
@@ -160,13 +161,27 @@ line is not printed):
               at the fame site, in every rank of every run. Per run: the
               slowest rank's seconds, ranks, backend, the collectives a
               rank made, and by rank the host seconds in them, the bytes
-              gloo copied through host memory and peak device memory.
+              gloo copied through host memory and peak device memory;
+18. mesh    — the live node's engine with its O(E·n) tables split into
+              shards under one controller (IncrementalEngine(mesh=...),
+              ops/mesh.py), the shards sharing the card: (a) part (c) of
+              dryrun_multichip(8), 8 shards equal to the single-device
+              engine (phase sharded's call); (b) the north-star DAG
+              through 4 shards and through the single-device engine,
+              run() per batch of 4,096: every RunDelta equal word for
+              word, 44,770 decided, each shard of _la, _chain_la and
+              _ranks a quarter of the table, the frontier probe launched
+              once per chain shard; seconds, host reads, launches by site
+              and torch calls per pass, shard bytes and peak memory of
+              both; (c) node (a)'s Core script with engine_mesh=4, its
+              blocks byte for byte those of a single-device torch Core
+              and of a host Core fed its events.
 
 Each path that launches a kernel (the one-shot main path, sim,
 sustained, northstar_incremental, hashgraph, both parts of node, every
-rank of every sharded run) runs with every launch count set to 0 just
-before it and read just after, and fails when the kernel was not
-launched at each of its sites. Lines before the last: a {"kernels": [...]} line (launches on
+rank of every sharded run, both engines of mesh (b), mesh (c)) runs
+with every launch count set to 0 just before it and read just after,
+and fails when the kernel was not launched at each of its sites. Lines before the last: a {"kernels": [...]} line (launches on
 the engine's path and on each path, max error, times and bound), a
 {"results": ...} line, and the nvidia-smi line. The last line is
 {"ok": true, "device": {...}}.
@@ -179,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import hashlib
 import json
 import logging
@@ -278,6 +294,8 @@ GOLDEN_SHARDED_C5_INPUT = "b9ebcd4ade323ef684dbf6647508639f27dd0ee4ab12a64cf2a9c
 GOLDEN_SHARDED_C5 = "b7154b636510e41c6622aa4e7545df1c7d5299e4a33f8003093095c393f13c5a"
 SHARDED_RANKS = 4
 DRYRUN_RANKS = 8
+# Phase mesh: the north-star engine's shards (on the one card).
+MESH_SHARDS = 4
 SHARDED_TIMEOUT_S = 600.0
 # The node phase: tests/test_failover.py's Core script (syncs, seed,
 # consensus every k syncs), then bench.py's node stage for the device
@@ -360,6 +378,10 @@ KERNEL_SHAPES = [(5, 7, 4), (64, 64, 64), (130, 200, 100), (1024, 1024, 1024)]
 # - sharded_headline_level / sharded_headline_fame: the same at the
 #   headline on 4 ranks: 16 witness chains a rank over 2,711 round rows,
 #   and 127 voting rounds x 16 voters against 64 witnesses.
+# - mesh_northstar_shard_probe: the mesh engine's frontier probe on one
+#   of MESH_SHARDS chain shards at n = 1024 (phase mesh): its 256 chains'
+#   rows against the 1,024 witness rows; its skip correction and fame
+#   launch at northstar_engine_probe's and _fame's shapes.
 NODE_PROBE_WAYS = 1024
 GATHERED_SHAPES = [
     ("node_fame_window", 15 * 4, 4, 4, 15, "tiles"),
@@ -379,6 +401,7 @@ GATHERED_SHAPES = [
     ("sharded_c5_fame", 7 * 1024, 4096, 4096, 7, "tiles"),
     ("sharded_headline_level", 64, 16, 64, 2711, "two"),
     ("sharded_headline_fame", 127 * 16, 64, 64, 127, "tiles"),
+    ("mesh_northstar_shard_probe", 1024 // 4, 1024, 1024, 1, "one"),
 ]
 # (timed calls, warm-up calls) of the plain version where the default
 # would take minutes: it gathers [rows, W, n] in chunks of 2^28.
@@ -1820,7 +1843,7 @@ def prefix_equal(a, b) -> bool:
     return a[:m] == b[:m]
 
 
-def node_core_script(device):
+def node_core_script(device, engine_mesh=0):
     """tests/test_failover.py's make_cores + gossip_script on the port:
     one Core(engine="torch", device_verify=True) on the card with the
     default presize among three host Cores, NODE_SCRIPT's scripted syncs;
@@ -1828,7 +1851,10 @@ def node_core_script(device):
     exists to take a sync). Its events are then
     fed to a host-engine twin Core (same key, same events, a pass where
     the torch core ran one), which must agree in consensus events, block
-    bytes, head/seq, rounds and round-received."""
+    bytes, head/seq, rounds and round-received. With engine_mesh > 1
+    the torch core's engine is split into that many shards
+    (Config.engine_mesh), and a second twin, the single-device torch
+    Core fed the same way, must commit the same block bytes."""
     import random
 
     from babble_tpu_torch.hashgraph import Event, InmemStore
@@ -1841,6 +1867,7 @@ def node_core_script(device):
     cores = [Core(i, keys[i], participants, InmemStore(participants, NODE_CACHE),
                   commit_callback=commits.append if i == 0 else None,
                   engine="torch" if i == 0 else "host",
+                  engine_mesh=engine_mesh if i == 0 else 0,
                   engine_opts={"device": device} if i == 0 else None,
                   device_verify=(i == 0))
              for i in range(NODE_N)]
@@ -1872,18 +1899,29 @@ def node_core_script(device):
     launches = read_launches()
     verify_launches = p256_launches()
     verify_phase = dev.phase_ns.get("verify_device-p256", [0, 0, 0])
+    shards = len(dev.hg.engine.shards("_la"))
     dev.hg.close()
 
     events = stored_events(dev.hg.store, participants)
-    twin_commits = []
-    twin = Core(0, keys[0], participants, InmemStore(participants, NODE_CACHE),
-                commit_callback=twin_commits.append, engine="host")
-    k = 0
-    for m in marks + [len(events)]:
-        for ev in events[k:m]:
-            twin.insert_event(Event(ev.body, r=ev.r, s=ev.s), True)
-        k = max(k, m)
-        twin.run_consensus()
+
+    def replay(engine):
+        """A twin Core on `engine` fed the torch core's events, a pass
+        where it ran one; returns it and its commits."""
+        twin_commits = []
+        twin = Core(0, keys[0], participants, InmemStore(participants, NODE_CACHE),
+                    commit_callback=twin_commits.append, engine=engine,
+                    engine_opts={"device": device} if engine == "torch" else None)
+        k = 0
+        for m in marks + [len(events)]:
+            for ev in events[k:m]:
+                twin.insert_event(Event(ev.body, r=ev.r, s=ev.s), True)
+            k = max(k, m)
+            twin.run_consensus()
+        if engine == "torch":
+            twin.hg.close()
+        return twin, twin_commits
+
+    twin, twin_commits = replay("host")
     order = dev.get_consensus_events()
     checks = {
         "consensus_events": twin.get_consensus_events() == order,
@@ -1899,8 +1937,14 @@ def node_core_script(device):
         "p256_launched": verify_launches > 0,
         "verify_on_device": verify_phase[2] > 0 and not any(
             ph.startswith("verify_") and ph != "verify_device-p256" for ph in dev.phase_ns),
+        "shards": shards == max(engine_mesh, 1),
     }
-    res = {"steps": steps, "seed": seed, "consensus_every": every,
+    if engine_mesh > 1:
+        single, single_commits = replay("torch")
+        checks["blocks_single_device"] = (
+            [b.marshal() for b in single_commits] == [b.marshal() for b in commits])
+        checks["consensus_events_single_device"] = single.get_consensus_events() == order
+    res = {"steps": steps, "seed": seed, "consensus_every": every, "shards": shards,
            "engine": {k: getattr(dev.hg.engine, a) for k, a in
                       (("capacity", "cap"), ("block", "block"), ("k_capacity", "kcap"))},
            "events": len(events), "decided": len(order), "blocks": len(commits),
@@ -1910,12 +1954,13 @@ def node_core_script(device):
            "verify_device_p256": {"calls": verify_phase[2], "total_ms": verify_phase[1] / 1e6},
            "checks": checks}
     print(f"node core script: {steps} syncs (seed {seed}, consensus every {every}), torch "
-          f"core on {device} with {res['engine']}: {len(events)} events, {len(order)} "
+          f"core on {device} in {shards} shard(s) with {res['engine']}: {len(events)} "
+          f"events, {len(order)} "
           f"decided, {len(commits)} blocks, last consensus round "
           f"{res['last_consensus_round']}, {len(marks)} passes, {script_s:.2f} s; "
           f"launches {launches} by site {sites}; P-256 launches {verify_launches}, "
           f"verify_device-p256 {verify_phase[2]} calls {verify_phase[1] / 1e6:.1f} ms; "
-          f"against the host twin: {checks}")
+          f"against the twins: {checks}")
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"node core script: the torch core differs in {bad}")
@@ -3107,6 +3152,190 @@ def phase_sharded(rec, device="cuda"):
           f"collectives a rank, rank 0's seconds in them {run['collective_s'][0]:.2f}")
 
 
+def close_and_join(eng) -> None:
+    """Close an engine and wait for its staging worker to exit, so that
+    nothing holds its device tables once the caller drops it."""
+    worker = eng._stage_thread
+    eng.close()
+    if worker is not None:
+        worker.join(timeout=60.0)
+
+
+def mesh_engine_run(dag, e, shards, device, count_calls=False) -> dict:
+    """The north-star DAG through one engine (NORTHSTAR_ENGINE), run()
+    per batch, in `shards` shards placed as Core places an engine_mesh
+    (the cards round robin; 1: the unsharded engine): its RunDeltas, the seconds, host reads, redos and B1
+    launches by site of every pass, peak device memory, the bytes of
+    each shard of the sharded carries, and the final host mirrors; the
+    engine's device tables are freed before it returns, so the next
+    run's peak is its own. With count_calls, only each pass's torch
+    calls on the staging worker (TorchFunctionMode costs every call, so
+    those runs are not timed)."""
+    import dataclasses
+
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from babble_tpu_torch.ops.incremental import IncrementalEngine
+    from babble_tpu_torch.ops.mesh import engine_mesh_devices
+
+    class Calls(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") != "__get__":  # not an attribute read
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    n = dag.n
+    gc.collect()  # an earlier run's engine, if its worker still held it
+    mesh = engine_mesh_devices(shards, n, device)  # the cards round robin
+    cards = list(dict.fromkeys(mesh or [torch.device(device)]))
+    base = []
+    for card in cards:
+        torch.cuda.synchronize(card)
+        torch.cuda.reset_peak_memory_stats(card)
+        base.append(torch.cuda.memory_allocated(card))
+    eng = IncrementalEngine(n, mesh=mesh, device=None if mesh else device,
+                            **NORTHSTAR_ENGINE)
+    calls = []
+    if count_calls:
+        stage = eng._stage_pass
+
+        def counted(pp):  # the mode is per thread: count on the staging worker
+            with Calls() as c:
+                stage(pp)
+            calls.append(c.n)
+
+        eng._stage_pass = counted
+        for batch in engine_batches(dag, e):
+            eng.append_batch(*batch)
+            eng.run()
+        close_and_join(eng)
+        return {"torch_calls_per_pass": calls}
+    deltas, per_b, syncs, redos, site_passes = [], [], [], [], []
+    reset_launches()
+    with launches_by_site() as sites:
+        t0 = time.perf_counter()
+        for batch in engine_batches(dag, e):
+            eng.append_batch(*batch)
+            before, r0 = dict(sites), eng.redo_count
+            tb = time.perf_counter()
+            deltas.append(dataclasses.asdict(eng.run()))
+            per_b.append(time.perf_counter() - tb)
+            syncs.append(eng.host_syncs)
+            redos.append(eng.redo_count - r0)
+            site_passes.append({k: v - before.get(k, 0) for k, v in sites.items()})
+        total = time.perf_counter() - t0
+    close_and_join(eng)
+    peak = [torch.cuda.max_memory_allocated(card) for card in cards]
+    shard_bytes = {name: [t.numel() * t.element_size() for t in eng.shards(name)]
+                   for name in ("_la", "_chain_la", "_ranks")}
+    state = {name: getattr(eng, name) for name in
+             ("rounds", "witness", "rr", "cts_ns", "famous", "undecided_rounds")}
+    decided = int((eng.rr[:e] >= 0).sum())
+    del eng
+    return {"shards": shards, "devices": [str(d) for d in mesh or [device]],
+            "total_s": total, "per_batch_s": per_b,
+            "host_syncs_per_pass": syncs, "redos_per_pass": redos,
+            "launches": read_launches(), "launches_by_site": dict(sites),
+            "launches_by_site_per_pass": site_passes,
+            "peak_mem_bytes": sum(peak), "base_mem_bytes": sum(base),
+            "peak_mem_bytes_by_card": peak, "shard_bytes": shard_bytes,
+            "decided": decided, "_deltas": deltas, "_state": state}
+
+
+def phase_mesh(rec, device="cuda"):
+    """The mesh-resident incremental engine (IncrementalEngine(mesh=...),
+    ops/mesh.py) on the card, its shards sharing it: (a)
+    entry.dryrun_multichip(DRYRUN_RANKS)'s part (c), an 8-shard engine
+    equal to the single-device one (from phase sharded's call when it
+    ran, else a call of its own); (b) the north-star DAG through
+    IncrementalEngine(1024, mesh=...) with MESH_SHARDS shards on the
+    cards round robin (Core's engine_mesh placement: all on one card
+    where there is one) and through the
+    single-device engine, run() per batch of 4,096: every RunDelta equal
+    word for word, the final mirrors too, 44,770 decided, each shard of
+    _la, _chain_la and _ranks 1/MESH_SHARDS of the single engine's
+    table, the frontier probe launched MESH_SHARDS times as often (once
+    a chain shard) and the skip correction and fame as often; seconds,
+    host reads, redos, launches by site and torch calls per pass, peak
+    memory of both; (c) node_core_script with engine_mesh=MESH_SHARDS:
+    the same blocks, byte for byte, as the single-device torch Core and
+    the host Core fed its events."""
+    import torch
+
+    from babble_tpu_torch.entry import dryrun_multichip
+    from babble_tpu_torch.ops.dag import synthetic_dag
+
+    res = rec["mesh"] = {}
+    dry = (rec.get("sharded") or {}).get("dryrun")
+    if dry is None:
+        dry = dryrun_multichip(DRYRUN_RANKS, device=device, timeout_s=SHARDED_TIMEOUT_S)
+        dry["called_by"] = "mesh"
+    part_c = dry["engine_mesh"]
+    res["dryrun_engine_mesh"] = part_c
+    print(f"mesh (a): dryrun_multichip({DRYRUN_RANKS}) part (c): {part_c['shards']} shards "
+          f"== single-device engine, n = {part_c['n']}, {part_c['decided']} decided, "
+          f"la shard elements {part_c['la_shard_elems']}, seconds {part_c['seconds']}")
+    if part_c["shards"] != DRYRUN_RANKS:
+        raise AssertionError(f"mesh (a): part (c) ran {part_c['shards']} shards")
+
+    n, e, seed = NORTHSTAR
+    dag, _ = synthetic_dag(n, e, seed=seed)
+    runs = {}
+    for shards in (1, MESH_SHARDS):
+        torch.cuda.empty_cache()
+        run = mesh_engine_run(dag, e, shards, device)
+        run.update(mesh_engine_run(dag, e, shards, device, count_calls=True))
+        runs[shards] = run
+    single, mesh = runs[1], runs[MESH_SHARDS]
+    res["northstar"] = {str(k): {kk: v for kk, v in r.items() if not kk.startswith("_")}
+                        for k, r in runs.items()}
+    for shards, r in runs.items():
+        print(f"mesh (b): north star, {shards} shard(s) on {r['devices']}: "
+              f"{r['total_s']:.2f} s, "
+              f"{r['decided']} decided, peak {r['peak_mem_bytes'] / 2**30:.2f} GiB (from "
+              f"{r['base_mem_bytes'] / 2**30:.2f} GiB before), shard "
+              f"bytes {r['shard_bytes']}, launches {r['launches']} by site "
+              f"{r['launches_by_site']}, host reads per pass {r['host_syncs_per_pass']}, "
+              f"redos {sum(r['redos_per_pass'])}, torch calls per pass "
+              f"{r['torch_calls_per_pass']}")
+    bad = [k for k, (a, b) in enumerate(zip(mesh["_deltas"], single["_deltas"])) if a != b]
+    if bad or len(mesh["_deltas"]) != len(single["_deltas"]):
+        raise AssertionError(f"mesh (b): RunDeltas of passes {bad} differ from the "
+                             "single-device engine's")
+    a, b = mesh["_state"], single["_state"]
+    bad = [name for name in ("rounds", "witness", "rr", "cts_ns", "famous")
+           if not np.array_equal(a[name], b[name])]
+    if a["undecided_rounds"] != b["undecided_rounds"]:
+        bad.append("undecided_rounds")
+    if bad:
+        raise AssertionError(f"mesh (b): final {bad} differ from the single-device engine's")
+    if mesh["decided"] != NORTHSTAR_DECIDED:
+        raise AssertionError(f"mesh (b): {mesh['decided']} decided != {NORTHSTAR_DECIDED}")
+    for name, sizes in mesh["shard_bytes"].items():
+        whole = single["shard_bytes"][name][0]
+        if len(sizes) != MESH_SHARDS or any(MESH_SHARDS * sz != whole for sz in sizes):
+            raise AssertionError(f"mesh (b): {name} shards {sizes} are not 1/{MESH_SHARDS} "
+                                 f"of {whole}")
+    for name, r in (("mesh single", single), ("mesh sharded", mesh)):
+        check_engine_sites(name, r["launches"], r["launches_by_site"])
+    for k, (sp, ss) in enumerate(zip(mesh["launches_by_site_per_pass"],
+                                     single["launches_by_site_per_pass"])):
+        want = dict(ss, frontier_probe=MESH_SHARDS * ss.get("frontier_probe", 0))
+        if {s: v for s, v in sp.items() if v} != {s: v for s, v in want.items() if v}:
+            raise AssertionError(f"mesh (b): pass {k} launched {sp}, expected {want}")
+    print(f"mesh (b): every RunDelta of {len(single['_deltas'])} passes equal, "
+          f"{mesh['decided']} decided, probe launches {MESH_SHARDS}x the single engine's")
+
+    res["core_script"] = node_core_script(device, engine_mesh=MESH_SHARDS)
+    print(f"mesh (c): the {MESH_SHARDS}-shard torch Core commits the single-device Core's "
+          f"{res['core_script']['blocks']} blocks byte for byte")
+
+
 def kernels_line(rec) -> dict:
     """One entry per entry point of the strongly-see kernel, timed at
     the shape the main path launches most (for the gathered entry the
@@ -3142,6 +3371,14 @@ def kernels_line(rec) -> dict:
         by_path["sharded_dryrun"] = {"ranks": sharded["dryrun"]["ranks"],
                                      "backend": sharded["dryrun"]["backend"],
                                      "by_site_per_rank": sharded["dryrun"]["run"]["sites"]}
+    mesh = rec.get("mesh") or {}
+    for shards, run in (mesh.get("northstar") or {}).items():
+        by_path[f"mesh_northstar_{shards}_shards"] = {
+            "by_mode": run["launches"], "by_site": run["launches_by_site"],
+            "by_site_per_pass": run["launches_by_site_per_pass"]}
+    if mesh.get("core_script"):
+        by_path["mesh_core_script"] = {"by_mode": mesh["core_script"]["launches"],
+                                       "by_site": mesh["core_script"]["launches_by_site"]}
     cli_profile = (rec.get("cli") or {}).get("profile") or {}
     by_path["cli"] = {"profiled_launches": cli_profile.get("strongly_see_launches"),
                       "profile_s": cli_profile.get("seconds"),
@@ -3234,7 +3471,7 @@ def main() -> int:
               ("sustained_profile", phase_sustained_profile),
               ("northstar_incremental", phase_northstar_incremental),
               ("hashgraph", phase_hashgraph), ("node", phase_node), ("cli", phase_cli),
-              ("sharded", phase_sharded)]
+              ("sharded", phase_sharded), ("mesh", phase_mesh)]
     chosen = sys.argv[1:]
     if chosen:
         # A bring-up aid: build, then the named phases in the order given
@@ -3277,7 +3514,7 @@ def main() -> int:
                                    "main_path_launches",
                                    "profile", "northstar", "sim", "sustained",
                                    "sustained_profile", "northstar_incremental",
-                                   "hashgraph", "node", "cli", "sharded", "phase_s",
+                                   "hashgraph", "node", "cli", "sharded", "mesh", "phase_s",
                                    "total_s")}},
                      default=str))
     print(smi_line)

@@ -1,7 +1,8 @@
 """The port's CLI (python -m babble_tpu_torch.cli): tests/test_cli.py's
 version, keygen and localhost testnet on the port, the CLI's refusals
-(--engine tpu, and run with no GPU and no --engine_device), and a node
-run with --device_verify on --engine_device cpu.
+(--engine tpu, and run with no GPU and no --engine_device), a node
+run with --device_verify on --engine_device cpu, and one with
+--engine_mesh 2 (its engine in two shards).
 
 The testnet: 3 processes of `run --engine torch --engine_device cpu`
 on free localhost ports, TCP gossip, socket app proxies with one
@@ -159,6 +160,37 @@ def test_run_device_verify_answers_stats(tmp_path):
             with urllib.request.urlopen(f"http://127.0.0.1:{service}/Stats", timeout=5) as r:
                 stats = json.loads(r.read())
             assert stats["engine_state"] == "device"
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        assert proc.returncode == 0, tail(log)
+
+
+def test_run_engine_mesh_answers_capacity(tmp_path):
+    """run --engine_mesh 2 --engine_device cpu over 2 validators boots
+    with its engine in 2 shards (node 0 alone: the service answers
+    without its peer); /debug/capacity names them; SIGTERM exits 0."""
+    datadirs, addrs = make_datadirs(tmp_path, 2)
+    node, proxy, client, service = addrs[0]
+    with open(tmp_path / "node0.stderr", "w+") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "babble_tpu_torch.cli", "run", "--datadir", datadirs[0],
+             "--engine_mesh", "2", "--engine_device", "cpu", "--no_client",
+             "--node_addr", f"127.0.0.1:{node}", "--proxy_addr", f"127.0.0.1:{proxy}",
+             "--client_addr", f"127.0.0.1:{client}", "--service_addr", f"127.0.0.1:{service}",
+             "--heartbeat", "50", "--log_level", "error"],
+            env=cli_env(), stdout=subprocess.DEVNULL, stderr=log)
+        try:
+            up = wait_port(service, time.monotonic() + BOOT_S)
+            assert proc.poll() is None and up, tail(log)
+            with urllib.request.urlopen(f"http://127.0.0.1:{service}/debug/capacity",
+                                        timeout=5) as r:
+                engine = json.loads(r.read())["engine"]
+            assert engine["mesh_shards"] == 2 and engine["mesh_devices"] == 1
         finally:
             proc.terminate()
             try:

@@ -6,7 +6,9 @@ __graft_entry__.py's, on the CPU. Tolerance: exact equality.
 - dryrun_multichip(8, device="cpu") passes parts (a), (b) and (d) on 8
   gloo ranks, and dryrun_multichip(4, device="cpu") with the 2 x 2
   ("dcn", "ici") mesh; the sharded run reaches the strongly-see
-  wrapper at both sites in every rank;
+  wrapper at both sites in every rank; part (c), in the calling
+  process, holds a d-shard engine equal to the single-device one, its
+  coordinate table in d shards that sum to the whole, none whole;
 - without a CUDA device, entry() and dryrun_multichip() given no device
   raise."""
 
@@ -43,8 +45,14 @@ def test_dryrun_multichip(d, capsys):
     sites = rec["run"]["sites"]
     assert len(sites) == d
     assert all(s["rounds"]["calls"] > 0 and s["fame"]["calls"] == 1 for s in sites)
+    engine = rec["engine_mesh"]
+    assert engine["shards"] == d and engine["n"] == 16 and engine["decided"] > 0
+    la = engine["la_shard_elems"]
+    # 600 events grow the capacity from 64 to 1,024: la is [1,025, 16]
+    assert len(la) == d and sum(la) == 1025 * 16 and max(la) < sum(la)
     out = capsys.readouterr().out
     assert "dryrun_multichip ok" in out and f"2x{d // 2} dcn*ici mesh index a-major" in out
+    assert f"{d}-shard engine == single-device" in out
 
 
 def test_default_backend():

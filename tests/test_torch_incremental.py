@@ -386,16 +386,21 @@ def test_one_pass_reaches_the_gathered_kernel(monkeypatch):
 
 def test_memory_stats_prewarm_and_left_out_parts():
     """device_memory_stats counts the resident tensors and host mirrors;
-    prewarm runs a scratch engine; the mesh option raises; the default
-    device is CUDA, which raises where there is none."""
+    prewarm runs a scratch engine; a mesh the participants do not
+    divide over raises, as the JAX engine's does, and a one-device mesh
+    is the unsharded engine; the default device is CUDA, which raises
+    where there is none."""
     eng = tinc.IncrementalEngine(4, device="cpu", **SMALL)
     stats = eng.device_memory_stats()
     assert stats["device_bytes"] >= eng._chain_la.numel() * 4
     assert stats["host_mirror_bytes"] > 0 and stats["n"] == 4
+    assert "mesh_shards" not in stats
     assert eng.prewarm() is True
     assert eng.prewarm(budget_bytes=1) is False
-    with pytest.raises(NotImplementedError):
-        tinc.IncrementalEngine(4, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="divide"):
+        tinc.IncrementalEngine(4, mesh=["cpu"] * 3, device="cpu")
+    one = tinc.IncrementalEngine(4, mesh=["cpu"], **SMALL)
+    assert one._mesh is None and isinstance(one._la, torch.Tensor)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tinc.IncrementalEngine(4)

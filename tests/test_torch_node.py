@@ -12,7 +12,9 @@ engine (TorchHashgraph on the CPU). Tolerance: exact equality.
   engine and commits nothing: failover to the host engine is opt-in;
 - with failover turned on, the node watchdog (tests/test_failover.py's
   watchdog test) fails a torch node whose engine raises over to the
-  host engine while the net keeps converging.
+  host engine while the net keeps converging;
+- the node state's wait_routines never joins a routine before it has
+  started (ROADMAP C6), under a stress of routines starting.
 
 Each net runs under a deadline of its own (DEADLINE_S): the suite has
 no timeout plugin."""
@@ -20,6 +22,8 @@ no timeout plugin."""
 from __future__ import annotations
 
 import logging
+import sys
+import threading
 import time
 
 import pytest
@@ -31,7 +35,7 @@ from babble_tpu_torch.net.inmem_transport import connect_all
 from babble_tpu_torch.node import Node
 from babble_tpu_torch.node.config import Config
 from babble_tpu_torch.node.config import test_config as fast_config
-from babble_tpu_torch.node.state import NodeState
+from babble_tpu_torch.node.state import NodeState, StateMachine
 from chip_smoke import FailedPassRecords, committed_blocks, delivery_check, recording_proxy
 
 SMALL_ENGINE = {"capacity": 64, "block": 64, "k_capacity": 8, "device": "cpu"}
@@ -53,10 +57,11 @@ def failed_passes():
     logger.removeHandler(handler)
 
 
-def make_nodes(engines, transport="inmem", store=None, bootstrap=False):
+def make_nodes(engines, transport="inmem", store=None, bootstrap=False, engine_mesh=0):
     """tests/test_node.make_nodes: node i on engines[i], over the inmem
     transport or TCP on free localhost ports; torch nodes run consensus
-    on the worker every 0.05 s. `store(i, participants)` makes node i's
+    on the worker every 0.05 s, their engines split into `engine_mesh`
+    shards (Config.engine_mesh). `store(i, participants)` makes node i's
     store (default an InmemStore); `bootstrap` recovers each node from
     it."""
     n = len(engines)
@@ -75,6 +80,7 @@ def make_nodes(engines, transport="inmem", store=None, bootstrap=False):
     for i, (key, peer) in enumerate(entries):
         conf = fast_config(heartbeat=HEARTBEAT)
         conf.engine = engines[i]
+        conf.engine_mesh = engine_mesh
         if engines[i] == "torch":
             conf.engine_opts = SMALL_ENGINE
             conf.consensus_interval = 0.05
@@ -285,3 +291,38 @@ def test_delivery_check_leaves_out_blocks_without_transactions(delivered, lost_o
     ok, counts = delivery_check(node, own)
     assert ok is lost_ok
     assert counts["lost"] == [rr for rr in range(3) if rr not in delivered]
+
+
+def test_wait_routines_never_joins_a_routine_before_it_starts():
+    """The node state's routines (node/state.py) started by 16 threads
+    while a shutdown's wait_routines joins them, the interpreter
+    switching threads every microsecond, for one second: no join meets
+    a routine registered but not started, which raised RuntimeError in
+    the reference's copy (ROADMAP C6) and failed a node's shutdown."""
+    sm = StateMachine()
+    stop_spawning = threading.Event()
+    errors = []
+
+    def spawner():
+        while not stop_spawning.is_set():
+            sm.go_func(lambda: time.sleep(0.001))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    spawners = [threading.Thread(target=spawner) for _ in range(16)]
+    try:
+        for t in spawners:
+            t.start()
+        deadline = time.monotonic() + 1.0
+        while time.monotonic() < deadline:
+            try:
+                sm.wait_routines(timeout=0.05)
+            except RuntimeError as exc:
+                errors.append(exc)
+    finally:
+        stop_spawning.set()
+        for t in spawners:
+            t.join(5.0)
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in spawners)
+    assert not errors, errors[:3]

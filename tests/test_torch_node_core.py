@@ -21,7 +21,8 @@ port's host-engine Core and the JAX package's host `Hashgraph` and
   p256.verify_batch in one call, its verdicts land in the memos, a
   kernel failure raises with no host fallback, and a device-verify
   torch Core driven by the script equals its host twin;
-- what the torch seam refuses: no CUDA, engine="tpu", engine_mesh > 1."""
+- what the torch seam refuses: no CUDA, engine="tpu"; engine_mesh=2
+  builds a two-shard engine."""
 
 from __future__ import annotations
 
@@ -553,12 +554,25 @@ def test_torch_engine_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw,match", [
     ({"engine": "tpu"}, "'torch'"),
-    ({"engine": "torch", "engine_mesh": 2, "engine_opts": SMALL_ENGINE}, "A12"),
     ({"engine": "jax"}, "unknown consensus engine"),
 ])
 def test_engine_choice_refused(kw, match):
     with pytest.raises(ValueError, match=match):
         _bare_core(**kw)
+
+
+def test_engine_mesh_builds_a_sharded_engine():
+    """Core(engine_mesh=2) over 2 validators builds a two-shard engine on
+    the engine's device (the JAX Core's mesh from Config.engine_mesh):
+    the coordinate table in two column shards of one column each."""
+    core = _bare_core(engine="torch", engine_mesh=2, engine_opts=SMALL_ENGINE)
+    try:
+        eng = core.hg.engine
+        assert eng._mesh == [torch.device("cpu")] * 2
+        assert [t.shape[1] for t in eng.shards("_la")] == [1, 1]
+        assert eng.device_memory_stats()["mesh_shards"] == 2
+    finally:
+        core.hg.close()
 
 
 def test_default_presize(monkeypatch):
@@ -583,4 +597,4 @@ def test_default_presize(monkeypatch):
         with pytest.raises(RuntimeError, match="stop"):
             _bare_core(engine="torch", engine_opts=opts, engine_prewarm=True)
         got = seen.pop()
-        assert got == dict(want, prewarm=True), got
+        assert got == dict(want, prewarm=True, mesh=None), got

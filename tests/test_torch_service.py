@@ -19,6 +19,11 @@ equality.
 - the capacity sizer behind those scrapes survives a cache that another
   thread writes (ROADMAP C4).
 
+The reference net is scraped after its shutdown, which goes through
+join_when_started: the reference's capacity sizer iterates the live
+store cache, and its node state can join a routine it has registered
+but not started, which raises (ROADMAP C6); the port's copies fix both.
+
 The port's net is shared by the module (`nets`); the reference's runs
 only for the key-set test. Each runs under a deadline of its own."""
 
@@ -84,6 +89,27 @@ def nets():
         stop(nodes)
 
 
+def join_when_started(state):
+    """Make a reference node's wait_routines survive the reference's
+    start race (ROADMAP C6): its go_func registers a routine before
+    starting it, and a shutdown that joins it in between raised
+    RuntimeError, leaving the rest of the teardown undone. A join that
+    finds such a routine is tried again until it has started."""
+    real = state.wait_routines
+
+    def wait_routines(timeout=5.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                return real(max(deadline - time.monotonic(), 0.0))
+            except RuntimeError:  # joined a routine not started yet
+                if time.monotonic() >= deadline:
+                    return None
+                time.sleep(0.01)
+
+    state.wait_routines = wait_routines
+
+
 def reference_service_answers():
     """/Stats and /debug/peers of the reference's service on node 0 of a
     reference host net over TCP, run to the same round."""
@@ -92,17 +118,24 @@ def reference_service_answers():
     from test_node import run_gossip as ref_run_gossip
 
     ref_nodes = ref_make_nodes(4, "tcp")
+    for node in ref_nodes:
+        join_when_started(node.state)
     ref_service = RefService("127.0.0.1:0", ref_nodes[0])
     ref_service.serve_async()
     try:
-        ref_run_gossip(ref_nodes, target_round=TARGET_ROUND, timeout=DEADLINE_S,
-                       shutdown=False)
+        try:
+            ref_run_gossip(ref_nodes, target_round=TARGET_ROUND, timeout=DEADLINE_S,
+                           shutdown=False)
+        finally:
+            for node in ref_nodes:
+                node.shutdown()
+        # Scraped once the net has stopped: the reference's capacity
+        # sizer iterates the live store cache (ROADMAP C4, C6), and a
+        # running node's writes made a scrape drop its connection.
         return {"stats": get_json(ref_service.addr, "/Stats"),
                 "peers": get_json(ref_service.addr, "/debug/peers")}
     finally:
         ref_service.close()
-        for node in ref_nodes:
-            node.shutdown()
 
 
 def test_stats_endpoint(nets):
