@@ -1,0 +1,9 @@
+"""B9 (csrc/p256.cu): the launches' least time by bounds.py over their
+device time in the traced window (%)."""
+
+
+from readers import roofline_pct
+
+
+def read(rec):
+    return roofline_pct(rec, "p256")
