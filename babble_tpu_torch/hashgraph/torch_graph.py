@@ -30,6 +30,7 @@ import numpy as np
 from ..common import StoreError, StoreErrType, is_store_err
 from ..gojson import Timestamp, ZERO_TIME
 from ..ops.incremental import IncrementalEngine, RunDelta, ZERO_TIME_NS
+from ..telemetry.trace import SpanRing
 from .block import Block
 from .event import Event
 from .graph import ForkError, Hashgraph, InsertError, middle_bit
@@ -51,15 +52,19 @@ class TorchHashgraph(Hashgraph):
         mesh=None,
         prewarm: bool = False,
         device=None,
+        trace: Optional[SpanRing] = None,
     ):
         super().__init__(participants, store, commit_callback)
         self._capacity = capacity
         self._block = block
         self._k_capacity = k_capacity
         self._mesh = mesh
+        # The owner's span ring, which every engine of this graph
+        # records its pass spans on (a no-op ring when none is given).
+        self._trace = trace
         self.engine = IncrementalEngine(
             len(participants), capacity=capacity, block=block,
-            k_capacity=k_capacity, mesh=mesh, device=device)
+            k_capacity=k_capacity, mesh=mesh, device=device, trace=trace)
         self.device = self.engine.device
         if prewarm:
             # Build the kernel and make the first allocations now, so
@@ -322,7 +327,8 @@ class TorchHashgraph(Hashgraph):
         self.engine = IncrementalEngine(
             n, root_round, capacity=self._capacity, block=self._block,
             k_capacity=self._k_capacity, index_base=index_base,
-            from_reset=True, mesh=self._mesh, device=self.device)
+            from_reset=True, mesh=self._mesh, device=self.device,
+            trace=self._trace)
         self._eid_of = {}
         self._hex_by_id = []
         self.undecided_rounds = list(self.engine.undecided_rounds)

@@ -59,6 +59,8 @@ class Core:
         self._verify_device = (
             resolve_device((engine_opts or {}).get("device"))
             if device_verify else None)
+        # The span ring (see self.trace below), shared with the engine.
+        ring = trace if trace is not None else SpanRing(0)
         # "host" | "device" | "failed_over" (device engine replaced by
         # the host engine after repeated device-pass failures).
         self.engine_state = "device" if engine == "torch" else "host"
@@ -96,7 +98,7 @@ class Core:
                 participants, store, commit_callback,
                 capacity=cap, block=opts.get("block", 512),
                 k_capacity=k_cap, mesh=mesh, prewarm=engine_prewarm,
-                device=opts.get("device"))
+                device=opts.get("device"), trace=ring)
         elif engine == "host":
             self.hg = Hashgraph(participants, store, commit_callback)
         elif engine == "tpu":
@@ -140,7 +142,7 @@ class Core:
         # consensus-pass / failover spans for /debug/trace; a no-op
         # ring when the owner (tests constructing Core bare) passes
         # none.
-        self.trace = trace if trace is not None else SpanRing(0)
+        self.trace = ring
         # The owning Node shares its per-node registry; a Core built
         # bare (tests, tools) records into the process-global one.
         self._registry = registry if registry is not None else get_registry()
@@ -236,12 +238,21 @@ class Core:
     def forks_detected(self) -> int:
         return int(self._m_forks.value)
 
-    def _timed(self, phase: str, t0: int) -> None:
-        dt = time.perf_counter_ns() - t0
+    def _timed(self, phase: str, t0: int) -> int:
+        """Stamp the phase from `t0` to now; returns now."""
+        t1 = time.perf_counter_ns()
+        self.count_phase(phase, t1 - t0)
+        return t1
+
+    def count_phase(self, phase: str, dt: int, calls: int = 1) -> None:
+        """Add one interval of `dt` ns to a phase, counting `calls`:
+        1 for a timer, the work items done for a phase that counts
+        them (window tables built, signatures verified). Caller holds
+        the owner's core lock."""
         ent = self.phase_ns.setdefault(phase, [0, 0, 0])
         ent[0] = dt
         ent[1] += dt
-        ent[2] += 1
+        ent[2] += calls
         hist = self._phase_hist.get(phase)
         if hist is None:
             hist = self._registry.histogram(
@@ -454,16 +465,10 @@ class Core:
 
     def _sync_batch(self, unknown, unlocked=None,
                     wrap_fresh_only: bool = False) -> Dict[str, int]:
-        # Columnar batches get a wire_unpack stamp (the column ->
-        # Event materialization is the unpack; the legacy path's JSON
-        # decode happened in the transport) so /debug/phases splits the
-        # sync wall into marshal vs graph work (docs/ingest.md).
-        columnar = not isinstance(unknown, list)
         t0 = time.perf_counter_ns()
         events = self.hg.read_wire_batch(unknown)
-        if columnar:
-            self._timed("wire_unpack", t0)
-        self._timed("from_wire", t0)
+        self.trace.record("sync.from_wire", t0, self._timed("from_wire", t0),
+                          cat="sync")
 
         # Dedup-before-verify (ROADMAP crypto-plane lever 1): an event
         # already in the store OR currently in another batch's unlocked
@@ -482,17 +487,18 @@ class Core:
         try:
             if to_verify:
                 self._m_verified.inc(len(to_verify))
+                parts = {} if self.device_verify else None
                 if unlocked is not None:
                     with unlocked():
-                        verify_events(to_verify, self.verify_workers,
-                                      self.device_verify,
-                                      runtime=self.runtime,
-                                      device=self._verify_device)
+                        t_v = self._verify(to_verify, parts)
+                    # the wait to take the core lock back
+                    t_l = time.perf_counter_ns()
+                    self.count_phase("sync_lock_wait", t_l - t_v)
+                    self.trace.record("sync.lock_wait", t_v, t_l, cat="sync")
                 else:
-                    verify_events(to_verify, self.verify_workers,
-                                  self.device_verify,
-                                  runtime=self.runtime,
-                                  device=self._verify_device)
+                    t_v = self._verify(to_verify, parts)
+                if parts:
+                    self._count_verify_parts(parts, t_v)
                 # Per-backend sub-split of the verify wall
                 # (docs/observability.md "Crypto plane"): same interval
                 # stamped under `verify_<backend>` so /debug/phases
@@ -504,6 +510,45 @@ class Core:
                                       wrap_fresh_only)
         finally:
             inflight.difference_update(verifying)
+
+    def _verify(self, events, parts: Optional[dict]) -> int:
+        """verify_events in a `sync.verify` span, with the kernel call's
+        parts as its children; returns the end stamp. Touches no Core
+        state but the (thread-safe) ring: the core lock may be out."""
+        with self.trace.span("sync.verify", cat="sync",
+                             events=len(events)) as rec:
+            verify_events(events, self.verify_workers, self.device_verify,
+                          runtime=self.runtime, device=self._verify_device,
+                          parts=parts)
+        t1 = time.perf_counter_ns()
+        if parts and self.trace.capacity:
+            sid, t = rec["span_id"], parts["start_ns"]
+            t_p = t + round(parts["prelude"] * 1e9)
+            self.trace.record("verify.prelude", t, t_p, cat="verify",
+                              parent=sid, signatures=parts["signatures"],
+                              tables=parts["tables"])
+            if "epilogue" in parts:
+                t_l = t_p + round((parts["upload"] + parts["kernel"]) * 1e9)
+                t_w = t_l + round(parts["download"] * 1e9)
+                self.trace.record("verify.launch", t_p, t_l, cat="verify",
+                                  parent=sid)
+                self.trace.record("verify.wait", t_l, t_w, cat="verify",
+                                  parent=sid)
+                self.trace.record("verify.epilogue", t_w,
+                                  t_w + round(parts["epilogue"] * 1e9),
+                                  cat="verify", parent=sid)
+        return t1
+
+    def _count_verify_parts(self, parts: dict, t_end: int) -> None:
+        """The kernel call's counters as phases: `verify_prelude` (host
+        prelude wall), `verify_window_tables` (the wall of the window
+        table lookups; calls = tables built) and `verify_signatures`
+        (the call's wall to `t_end`; calls = signatures)."""
+        self.count_phase("verify_prelude", round(parts["prelude"] * 1e9))
+        self.count_phase("verify_window_tables", round(parts["tables_s"] * 1e9),
+                         parts["tables"])
+        self.count_phase("verify_signatures", t_end - parts["start_ns"],
+                         parts["signatures"])
 
     def _insert_batch(self, unknown, events, has_event,
                       wrap_fresh_only: bool = False) -> Dict[str, int]:
@@ -582,7 +627,8 @@ class Core:
                         # only {Body, R, S}, so the hex names the
                         # stored copy identically).
                         other_head = ev.hex()
-            self._timed("insert", t0)
+            self.trace.record("sync.insert", t0, self._timed("insert", t0),
+                              cat="sync")
 
             # Epidemic broadcast (docs/gossip.md): hand the fresh
             # inserts to the owner BEFORE wrapping them, so the relay
@@ -712,8 +758,10 @@ class Core:
         PendingPass immediately (None when there is nothing to do) —
         no device round trip happens here."""
         t0 = time.perf_counter_ns()
-        with self.trace.span("consensus_dispatch", cat="consensus"):
+        with self.trace.span("consensus_dispatch", cat="consensus") as rec:
             pending = self.hg.dispatch_consensus(unlocked=unlocked)
+            if pending is not None:
+                rec["pass_id"] = getattr(pending, "pass_id", 0)
         self._timed("consensus_dispatch", t0)
         if pending is not None:
             # Stamp so collect_consensus can observe the TRUE pass
@@ -731,11 +779,15 @@ class Core:
         if pending is None:
             return
         t0 = time.perf_counter_ns()
+        ordered = self.get_consensus_events_count()
         with self.trace.span("consensus_collect", cat="consensus",
-                             engine=self.engine_state):
+                             engine=self.engine_state,
+                             pass_id=getattr(pending, "pass_id", 0)):
             self.hg.collect_consensus(pending, unlocked=unlocked)
-        self._timed("consensus_collect", t0)
-        end = time.perf_counter_ns()
+        end = self._timed("consensus_collect", t0)
+        if self.get_consensus_events_count() == ordered:
+            # a pass that ordered no new event (calls count them)
+            self.count_phase("consensus_empty", end - t0)
         self._m_pass.observe(
             (end - getattr(pending, "_dispatch_ns", t0)) / 1e9)
         self._merge_engine_phases()
@@ -842,8 +894,7 @@ class Core:
 
     def _merge_engine_phases(self) -> None:
         # Device-engine sub-phases (coords/fd/fused dispatch/pull/
-        # apply) when the batched pipeline is active, plus the overlap
-        # diagnostic: device compute the host never waited for.
+        # apply) when the batched pipeline is active.
         engine = getattr(self.hg, "engine", None)
         if engine is None:
             return
@@ -853,12 +904,6 @@ class Core:
                 ent[0] = ns
                 ent[1] += ns
                 ent[2] += 1
-        overlap = getattr(engine, "last_overlap_ns", 0)
-        if overlap:
-            ent = self.phase_ns.setdefault("engine_overlap", [0, 0, 0])
-            ent[0] = overlap
-            ent[1] += overlap
-            ent[2] += 1
 
     def _merge_store_phases(self) -> None:
         # Durable-commit wall (FileStore WAL write + fsync) as a phase:

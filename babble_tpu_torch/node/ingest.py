@@ -91,12 +91,14 @@ def _observe_batch(size: int, backend: str) -> None:
     _batch_hist.observe(size)
 
 
-def _device_backend(device=None) -> Callable:
+def _device_backend(device=None, parts=None) -> Callable:
     """The port's device P-256 verify_batch, bound to `device` (CUDA
-    unless the caller names another; raises when there is none)."""
+    unless the caller names another; raises when there is none), filling
+    `parts` with its counters when given a dict."""
     from ..ops import p256
 
-    return functools.partial(p256.verify_batch, device=resolve_device(device))
+    kw = {} if parts is None else {"parts": parts}
+    return functools.partial(p256.verify_batch, device=resolve_device(device), **kw)
 
 
 def active_backend(device_verify: bool = False) -> str:
@@ -195,7 +197,8 @@ def _pool_instrument() -> QueueInstrument:
 
 def verify_events(events: List, workers: int,
                   device_verify: bool = False,
-                  runtime: str = "threads", device=None) -> None:
+                  runtime: str = "threads", device=None,
+                  parts: Optional[dict] = None) -> None:
     """Populate every event's signature memo. Returns nothing:
     outcomes (ok / bad / raising) are delivered through `Event.verify`
     exactly as the serial path delivers them.
@@ -205,12 +208,14 @@ def verify_events(events: List, workers: int,
     (`device_verify=True`): the WHOLE batch goes to the `ops/p256.py`
     kernel on `device` in one call — the kernel is internally
     batch-parallel, so farming chunks to threads would only contend the
-    single device; a kernel failure raises, with no memo written."""
+    single device; a kernel failure raises, with no memo written.
+    `parts`, a dict, receives the kernel call's counters (ops/p256.py
+    `verify_batch`); it stays empty when nothing reached the kernel."""
     n = len(events)
     if n == 0:
         return
     if device_verify:
-        verify_batch_events(events, _device_backend(device), "device-p256")
+        verify_batch_events(events, _device_backend(device, parts), "device-p256")
         return
     if runtime == "procs" and workers > 1 and n >= _MIN_POOL_BATCH:
         # Off-GIL plane (docs/runtime.md): columns cross to spawned

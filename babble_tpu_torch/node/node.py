@@ -64,6 +64,7 @@ from ..telemetry import (
 )
 from ..telemetry import profiler as _profiler
 from ..telemetry import threadcpu as _threadcpu
+from ..telemetry.timedlock import TimedLock
 from .config import Config
 from .control_timer import ControlTimer
 from .core import Core
@@ -242,7 +243,9 @@ class Node:
             pmap[p.pub_key_hex]: p.net_addr
             for p in participants if p.pub_key_hex in pmap
         }
-        self.core_lock = threading.Lock()
+        # Every acquisition that waits is timed (babble_tpu_torch/TRACING.md
+        # "The core lock's wait"), _core_unlocked's retake included.
+        self.core_lock = TimedLock(self._on_core_lock_wait)
         # At most two gossip rounds in flight (see _babble).
         self._gossip_slots = threading.Semaphore(2)
         # Anti-entropy rounds under plumtree run ONE at a time: two
@@ -715,6 +718,12 @@ class Node:
             (slots if slots is not None
              else self._gossip_slots).release()
 
+    def _on_core_lock_wait(self, t0: int, t1: int, site: str) -> None:
+        """A wait for the core lock, reported with the lock held: the
+        `core_lock_wait` phase (calls = waits) and a `lock_wait` span."""
+        self.core.count_phase("core_lock_wait", t1 - t0)
+        self.trace.record("lock_wait", t0, t1, cat="lock", site=site)
+
     @contextlib.contextmanager
     def _core_unlocked(self):
         """Release the core lock around the engine's device-result
@@ -769,12 +778,19 @@ class Node:
         failover_at = getattr(self.conf, "engine_failover_threshold", 0)
         engine_failures = 0  # consecutive device-pass failures
         while not self._shutdown.is_set():
-            self._shutdown.wait(min(max(iv_min, 2.0 * ema), iv_max))
+            interval = min(max(iv_min, 2.0 * ema), iv_max)
+            t_sleep = time.perf_counter_ns()
+            self._shutdown.wait(interval)
+            t_wake = time.perf_counter_ns()
+            self.trace.record("consensus.sleep", t_sleep, t_wake,
+                              cat="consensus", interval_ms=interval * 1e3,
+                              ema_ms=ema * 1e3)
             if self._shutdown.is_set():
                 break
             t0 = time.monotonic()
             try:
                 with self.core_lock:
+                    self.core.count_phase("consensus_sleep", t_wake - t_sleep)
                     if pipelined:
                         if pending is not None:
                             self.core.collect_consensus(

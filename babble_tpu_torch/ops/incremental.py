@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from ..devices import resolve_device
+from ..telemetry.trace import SpanRing
 from . import closure, frontier, hopper_kernels, kernels
 from .kernels import FAME_TRUE, FAME_UNDEFINED, INT32_MAX
 from .mesh import ColumnShards, mesh_devices, nbytes, take_chains
@@ -652,6 +653,7 @@ class PendingPass:
         "rounds_out", "rr_out",
         "dispatched_ns",
         "ready", "error",
+        "pass_id", "parent_span",
     )
 
 
@@ -683,7 +685,7 @@ class IncrementalEngine:
     def __init__(self, n: int, root_round=None, *, capacity: int = 256,
                  block: int = 256, k_capacity: int = 64,
                  index_base=None, from_reset: bool = False,
-                 mesh=None, device=None):
+                 mesh=None, device=None, trace: Optional[SpanRing] = None):
         if n < 1:
             raise ValueError("need at least one participant")
         devs = None if mesh is None else mesh_devices(mesh)
@@ -845,6 +847,12 @@ class IncrementalEngine:
         # its operations and bytes from the pass's shapes into here.
         self.cost_report: Optional[dict] = None
         self._cost_requested = False
+        # Pass spans (babble_tpu_torch/TRACING.md "Spans"): the staging
+        # thread's `engine.stage` with a child per stage, and collect's
+        # `engine.stage_wait`/`engine.pull`/`engine.apply`, all carrying
+        # the pass's id (1, 2, ... in dispatch order).
+        self.trace = trace if trace is not None else SpanRing(0)
+        self._passes = 0
 
     # -- device helpers ---------------------------------------------------
 
@@ -1193,6 +1201,11 @@ class IncrementalEngine:
             pp.chain_len0 = self.chain_len.copy()
             pp.ready = threading.Event()
             pp.error = None
+            self._passes += 1
+            pp.pass_id = self._passes
+            # the dispatching span, which the staging thread's spans
+            # name as their parent
+            pp.parent_span = self.trace.current()
             self._submit_stage(pp)
         except BaseException:
             # Retry safety: restore the batch so the next pass redoes it.
@@ -1282,8 +1295,10 @@ class IncrementalEngine:
         sync-up, ingest, closure, fd fold, the window derivation and the
         fused-epilogue dispatch. Reads only the pass snapshot plus host
         state that collect alone mutates."""
-        with self._on_stream():
-            self._stage_pass_on_stream(pp)
+        with self.trace.span("engine.stage", cat="engine",
+                             parent=pp.parent_span, pass_id=pp.pass_id):
+            with self._on_stream():
+                self._stage_pass_on_stream(pp)
 
     def _stage_pass_on_stream(self, pp: PendingPass) -> None:
         n = self.n
@@ -1304,6 +1319,8 @@ class IncrementalEngine:
                 self._sync()
             now = _t()
             self.phase_ns[name] = now - _phase_start
+            self.trace.record("engine." + name, _phase_start, now, cat="engine",
+                              pass_id=pp.pass_id)
             _phase_start = now
 
         # 0. Device sync-up: lazy capacity growth, then the new batch
@@ -1475,6 +1492,8 @@ class IncrementalEngine:
                 self._sync()
             now = time.perf_counter_ns()
             self.phase_ns[name] = self.phase_ns.get(name, 0) + now - last
+            self.trace.record("engine." + name, last, now, cat="engine",
+                              pass_id=pp.pass_id)
             last = now
 
         fused_kw = dict(n=n, sm=sm, rcap=rcap, bp=pp.bp, rw=pp.rw, iw=pp.iw,
@@ -1585,6 +1604,8 @@ class IncrementalEngine:
             t_enter = _t()
             self.phase_ns["c_stage_wait"] = (
                 self.phase_ns.get("c_stage_wait", 0) + t_enter - _t_wait)
+            self.trace.record("engine.stage_wait", _t_wait, t_enter,
+                              cat="engine", pass_id=pp.pass_id)
             self.last_overlap_ns = max(t_enter - pp.dispatched_ns, 0)
             cd0 = self.phase_ns.get("c_dispatch", 0)
             cp0 = self.phase_ns.get("c_pull", 0)
@@ -1605,6 +1626,8 @@ class IncrementalEngine:
                     self.phase_ns.get("c_pull_xfer", 0) + _t_done - _t_ready)
                 self.phase_ns["c_pull"] = (
                     self.phase_ns.get("c_pull", 0) + _t_done - _t_pull)
+                self.trace.record("engine.pull", _t_pull, _t_done, cat="engine",
+                                  pass_id=pp.pass_id)
                 self.c_pull_bytes = int(packed.nbytes)
                 t_end = int(packed[0])
                 newly_count = int(packed[1])
@@ -1775,8 +1798,10 @@ class IncrementalEngine:
         self._rr_d = pp.rr_out
         self.host_syncs = syncs
 
-        self.phase_ns["apply"] = (
-            self.phase_ns.get("apply", 0) + _t() - _now)
+        _end = _t()
+        self.phase_ns["apply"] = self.phase_ns.get("apply", 0) + _end - _now
+        self.trace.record("engine.apply", _now, _end, cat="engine",
+                          pass_id=pp.pass_id)
         # An append that slipped in during the unlocked wait means the
         # state is NOT at a fixpoint yet.
         self._empty_delta_ok = not self._new_since_run

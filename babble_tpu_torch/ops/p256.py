@@ -109,12 +109,18 @@ def _nibbles_of(values: Sequence[int]) -> np.ndarray:
         len(values), _NIBBLES).astype(np.int32)
 
 
+# Window tables built on each thread (verify_batch reads its own
+# thread's count before and after its lookups).
+_built = threading.local()
+
+
 @functools.lru_cache(maxsize=256)
 def _q_window_limbs(pub: bytes) -> np.ndarray:
     """Per-creator window table as a (16, 2, 16) limb array: entry i is
     i*Q affine (x, y); entry 0 is a never-addressed placeholder (nibble
     0 keeps the accumulator). Cached per creator alongside _fallback's
     own big-int window LRU."""
+    _built.n = getattr(_built, "n", 0) + 1
     pt = _fb.pub_key_from_bytes(pub)  # raises ValueError off-curve
     win = _fb._q_window(pt.x, pt.y)
     arr = np.zeros((16, 2, _LIMBS), dtype=np.int32)
@@ -394,7 +400,8 @@ def _verdict(X: int, Z: int, r: int) -> bool:
 
 def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
                  sigs: Sequence[Tuple[int, int]], device=None,
-                 parts: Optional[dict] = None) -> List[Optional[bool]]:
+                 parts: Optional[dict] = None,
+                 sync_parts: bool = False) -> List[Optional[bool]]:
     """Batched ECDSA verify on `device` (CUDA unless the caller names
     another) with the host backends' exact verdict contract: True/False
     per signature, None for a malformed creator point. Equal to
@@ -402,16 +409,23 @@ def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
     same u1*G + u2*Q over the same window tables; only where the ladder
     runs differs.
 
-    `parts`, if a dict, is filled with the wall seconds of "prelude",
-    "upload", "kernel", "download" and "epilogue"; only then is the
-    stream synchronised after the upload and after the kernel."""
+    `parts`, if a dict, receives the call's counters: "start_ns" (its
+    perf_counter_ns at entry), "signatures" (in the call), "tables"
+    (window tables built, one per distinct creator key the cache did not
+    hold), "tables_s" (the wall of those lookups) and the wall seconds
+    of each of PARTS that ran ("prelude" only, when no signature
+    reaches the ladder). The stream is not synchronised for them: then
+    "upload" and "kernel" are the host's enqueue and "download" waits
+    for the device. `sync_parts` synchronises after the upload and after
+    the kernel, which splits the device's time between them."""
     dev = resolve_device(device)
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     n = len(pubs)
     verdicts: List[Optional[bool]] = [False] * n
     qwins = [None] * n
     live: List[int] = []
     cache: dict = {}
+    built0 = getattr(_built, "n", 0)
     for i, pub in enumerate(pubs):
         if pub not in cache:
             try:
@@ -427,7 +441,12 @@ def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
             continue
         qwins[i] = arr
         live.append(i)
+    t_tables = time.perf_counter_ns()
+    if parts is not None:
+        parts.update(start_ns=t0, signatures=n, tables=getattr(_built, "n", 0) - built0,
+                     tables_s=(t_tables - t0) * 1e-9)
     if not live:
+        _fill_parts(parts, t0, [("prelude", t_tables)])
         return verdicts
 
     # Host prelude: one Montgomery batched inversion for every w, then
@@ -446,13 +465,12 @@ def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
     view[b * _NIBBLES:2 * b * _NIBBLES] = _nibbles_of(u2).ravel()
     np.stack([qwins[i] for i in live], out=view[2 * b * _NIBBLES:].reshape(b, 16, 2, _LIMBS))
     stream = _verify_stream(dev) if cuda else None
-    marks = [("prelude", time.perf_counter())]
+    marks = [("prelude", time.perf_counter_ns())]
 
     def mark(name):
-        if parts is not None:
-            if cuda:
-                stream.synchronize()
-            marks.append((name, time.perf_counter()))
+        if sync_parts and cuda:
+            stream.synchronize()
+        marks.append((name, time.perf_counter_ns()))
 
     with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
         dstage = stage.to(dev, non_blocking=True)
@@ -465,15 +483,25 @@ def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
         xz.copy_(out[:2], non_blocking=True)
         if cuda:
             stream.synchronize()
-    marks.append(("download", time.perf_counter()))
+    marks.append(("download", time.perf_counter_ns()))
     # Host epilogue: the verdict on the Jacobian point (Z = 0, the
     # identity point, rejects).
     for i, x, z in zip(live, _from_limbs(xz[0].numpy()), _from_limbs(xz[1].numpy())):
         verdicts[i] = _verdict(x, z, sigs[i][0])
-    marks.append(("epilogue", time.perf_counter()))
-    if parts is not None:
-        prev = t0
-        for name, t in marks:
-            parts[name] = t - prev
-            prev = t
+    marks.append(("epilogue", time.perf_counter_ns()))
+    _fill_parts(parts, t0, marks)
     return verdicts
+
+
+# The timed parts of verify_batch, in order from the call's entry.
+PARTS = ("prelude", "upload", "kernel", "download", "epilogue")
+
+
+def _fill_parts(parts: Optional[dict], t0: int, marks) -> None:
+    """Each part's seconds from the (name, end ns) marks, in order."""
+    if parts is None:
+        return
+    prev = t0
+    for name, t in marks:
+        parts[name] = (t - prev) * 1e-9
+        prev = t

@@ -21,7 +21,14 @@ transaction across the node rows.
 Entries carry a monotonically increasing completion sequence (`seq`),
 the cursor behind `/debug/trace?since=` — scrapers re-fetch only what
 completed since their last poll instead of re-downloading the whole
-ring."""
+ring.
+
+Each span also carries its parent's id (`parent`, 0 for a root) and
+the native id of the thread that ran it (`tid`), so a reader can take
+a layer's self time: its duration less what its children cover. The
+parent defaults to the innermost span open on the calling thread; work
+done on another thread for the same caller (the engine's staging
+thread for a dispatched pass) names its parent explicitly."""
 
 from __future__ import annotations
 
@@ -55,22 +62,36 @@ class SpanRing:
         # used to lose spans silently; scrapers now see the loss as
         # babble_trace_dropped_total and in the dump's babble block.
         self._dropped = 0
+        # Per thread, the ids of its open spans, innermost last.
+        self._open = threading.local()
+
+    def current(self) -> int:
+        """Id of the innermost span open on the calling thread; 0 when
+        none is open or the ring is disabled."""
+        stack = getattr(self._open, "ids", None)
+        return stack[-1] if stack else 0
 
     @contextlib.contextmanager
-    def span(self, name: str, cat: str = "node", **args):
+    def span(self, name: str, cat: str = "node",
+             parent: Optional[int] = None, **args):
         """Record one span around the body. Yields the args dict, so
         the body can attach outcome fields (`rec["outcome"] = ...`)
         that are only known at the end; the span's id is pre-assigned
         in `rec["span_id"]` so log lines emitted inside the span can
         carry it (`extra={"span_id": rec["span_id"]}` — the JSON log
-        formatter lifts it). Exceptions propagate; the span is
-        recorded either way with outcome=error unless the body set
-        its own."""
+        formatter lifts it). The parent is the innermost span open on
+        this thread unless `parent` names one. Exceptions propagate;
+        the span is recorded either way with outcome=error unless the
+        body set its own."""
         rec = dict(args)
         if self._spans is None:
             yield rec
             return
-        rec["span_id"] = next(self._ids)
+        rec["span_id"] = span_id = next(self._ids)
+        if parent is None:
+            parent = self.current()
+        stack = self._open.__dict__.setdefault("ids", [])
+        stack.append(span_id)
         t0 = time.perf_counter_ns()
         try:
             yield rec
@@ -78,13 +99,17 @@ class SpanRing:
             rec.setdefault("outcome", "error")
             raise
         finally:
-            self.record(name, t0, time.perf_counter_ns(), cat=cat, **rec)
+            stack.remove(span_id)
+            self.record(name, t0, time.perf_counter_ns(), cat=cat,
+                        parent=parent, **rec)
 
     def record(self, name: str, start_ns: int, end_ns: int,
-               cat: str = "node", **args) -> int:
+               cat: str = "node", parent: Optional[int] = None,
+               **args) -> int:
         """Append one completed span; returns its span id (0 when the
         ring is disabled) for log correlation. A pre-assigned
-        `span_id` in args (the span() context manager's) is honored."""
+        `span_id` in args (the span() context manager's) is honored.
+        `parent` defaults to the innermost span open on this thread."""
         if self._spans is None:
             return 0
         span_id = args.pop("span_id", None) or next(self._ids)
@@ -94,6 +119,8 @@ class SpanRing:
             "cat": cat,
             "t0": start_ns,
             "t1": end_ns,
+            "parent": self.current() if parent is None else parent,
+            "tid": threading.get_native_id(),
             "args": args,
         }
         with self._lock:
@@ -164,7 +191,8 @@ class SpanRing:
         process/thread name metadata so Perfetto labels the rows.
 
         `rebase` maps raw perf_counter ns onto an epoch (the node's
-        ClusterClock for `?epoch=cluster`); default is the raw
+        ClusterClock for `?epoch=cluster`, or a profiler trace's
+        timeline from `devclock.trace_rebase`); default is the raw
         monotonic domain. Flow entries render as ph "s"/"t"/"f" events
         on their category's lane. Extra context for tooling (the clock
         block tracemerge reads, the `next_since` cursor) rides in a
@@ -213,7 +241,8 @@ class SpanRing:
                 "tid": lane,
                 "ts": ts(sp["t0"]),
                 "dur": (sp["t1"] - sp["t0"]) / 1000.0,
-                "args": dict(sp["args"], span_id=sp["id"]),
+                "args": dict(sp["args"], span_id=sp["id"],
+                             parent=sp["parent"], thread=sp["tid"]),
             })
         out = {"traceEvents": events, "displayTimeUnit": "ms"}
         babble = {"pid": pid, "next_since": last,

@@ -952,8 +952,8 @@ def phase_p256(rec, device="cuda"):
         for _ in range(P256_PARTS_RUNS):
             runs.append({})
             p256.verify_batch(s_pubs[:b], s_digests[:b], s_sigs[:b], device=device,
-                              parts=runs[-1])
-        parts[b] = {k: statistics.median(r[k] for r in runs) * 1e3 for k in runs[0]}
+                              parts=runs[-1], sync_parts=True)
+        parts[b] = {k: statistics.median(r[k] for r in runs) * 1e3 for k in p256.PARTS}
         print(f"p256 verify_batch parts B={b} (ms, median of {P256_PARTS_RUNS}): "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts[b].items()))
     res["verify_parts_ms"] = parts

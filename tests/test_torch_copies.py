@@ -38,9 +38,18 @@ ALLOWED = {
     "node/config.py": [(12, 12), (87, 94), (131, 136), (149, 153), (180, 188)],
     # The engine seam (engine="torch", the default), device_verify on
     # the engine's device (resolved at construction, passed to each
-    # verify), the port's logger name.
-    "node/core.py": [(35, 35), (53, 118), (121, 128), (241, 241), (500, 500),
-                     (504, 504)],
+    # verify), the port's logger name. The span ring shared with the
+    # engine; count_phase; the sync's child spans, its verify's kernel
+    # counters and lock retake (no wire_unpack stamp); pass ids on the
+    # dispatch/collect spans and the empty-pass count; no
+    # engine_overlap phase.
+    "node/core.py": [(35, 35), (53, 118), (121, 128), (154, 154), (241, 241),
+                     (250, 251), (255, 255), (468, 472), (475, 477), (496, 504),
+                     (516, 516), (594, 594), (724, 726), (743, 747), (854, 855),
+                     (865, 870)],
+    # The core lock is a TimedLock reporting its waits; the consensus
+    # worker's sleep is a span and a phase.
+    "node/node.py": [(245, 245), (718, 718), (772, 772), (778, 778)],
     # A fault the reference has (ROADMAP §C, C6): a routine was
     # registered before it was started, and wait_routines, joining it
     # meanwhile, raised; the port starts it first.
@@ -66,6 +75,10 @@ ALLOWED = {
     # the port's dagdump; ?cost=1 counts the pass's cost from its
     # shapes (no XLA cost model) and names the port's device engine.
     "service/service.py": [(5, 5), (240, 240), (287, 290), (306, 306), (328, 330)],
+    # Spans carry their parent and thread (docstring, the per-thread
+    # stack of open spans, span/record, the Chrome export's args).
+    "telemetry/trace.py": [(24, 24), (58, 58), (60, 60), (66, 68), (73, 73), (81, 81),
+                           (84, 84), (87, 87), (97, 97), (167, 167), (216, 216)],
     # A fault the reference has (ROADMAP §C, C4): a /Stats, /metrics or
     # /debug/capacity scrape sized the store's caches while other
     # threads wrote them and could raise; the port snapshots the sample.

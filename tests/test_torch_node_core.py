@@ -577,7 +577,8 @@ def test_engine_mesh_builds_a_sharded_engine():
 
 def test_default_presize(monkeypatch):
     """The reference's presize (capacity 65,536, block 512, k_capacity
-    max(64, min(cap, 2**28 // (4 n^2)))), each overridable."""
+    max(64, min(cap, 2**28 // (4 n^2)))), each overridable; the engine
+    shares the Core's span ring, off in a bare Core."""
     seen = []
 
     class Spy(TorchHashgraph):
@@ -597,4 +598,5 @@ def test_default_presize(monkeypatch):
         with pytest.raises(RuntimeError, match="stop"):
             _bare_core(engine="torch", engine_opts=opts, engine_prewarm=True)
         got = seen.pop()
+        assert got.pop("trace").capacity == 0
         assert got == dict(want, prewarm=True, mesh=None), got

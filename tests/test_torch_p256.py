@@ -166,15 +166,19 @@ def test_verify_batch_matches_host_backends():
 
 def test_verify_batch_parts():
     """`parts` takes the wall seconds of each part of the call and leaves
-    the verdicts as they are; with no live lane nothing is timed."""
+    the verdicts as they are, synchronised between parts or not; with no
+    live lane only the prelude is timed."""
     pubs, digests, sigs, expected = corpus()
-    parts = {}
-    assert p256.verify_batch(pubs, digests, sigs, device="cpu", parts=parts) == expected
-    assert list(parts) == ["prelude", "upload", "kernel", "download", "epilogue"]
-    assert all(v >= 0 for v in parts.values())
+    for sync_parts in (False, True):
+        parts = {}
+        assert p256.verify_batch(pubs, digests, sigs, device="cpu", parts=parts,
+                                 sync_parts=sync_parts) == expected
+        assert [k for k in parts if k in p256.PARTS] == list(p256.PARTS)
+        assert all(parts[k] >= 0 for k in p256.PARTS)
+        assert 0 <= parts["tables_s"] <= parts["prelude"]
     none = {}
     p256.verify_batch(pubs[6:9], digests[6:9], sigs[6:9], device="cpu", parts=none)
-    assert none == {}
+    assert [k for k in none if k in p256.PARTS] == ["prelude"]
 
 
 def test_verify_batch_without_live_lanes():
