@@ -116,6 +116,14 @@ class Core:
         # kill switch — and a kernel failure raises out of the sync: no
         # host fallback.
         self.device_verify = bool(device_verify)
+        if self.device_verify:
+            # Every event comes from a participant: pin their window
+            # tables (ops/p256.py `window_tables`), so no sync rebuilds
+            # one that an LRU of 256 evicted.
+            from ..ops import p256
+
+            p256.window_tables.register(
+                bytes.fromhex(pk[2:]) for pk in participants)
         # Execution runtime for the verify plane (docs/runtime.md):
         # per-CORE, not process-global, so one test process can run a
         # mixed threads/procs cluster and pin byte-identical consensus
@@ -526,7 +534,8 @@ class Core:
             t_p = t + round(parts["prelude"] * 1e9)
             self.trace.record("verify.prelude", t, t_p, cat="verify",
                               parent=sid, signatures=parts["signatures"],
-                              tables=parts["tables"])
+                              tables=parts["tables"],
+                              table_hits=parts["table_hits"])
             if "epilogue" in parts:
                 t_l = t_p + round((parts["upload"] + parts["kernel"]) * 1e9)
                 t_w = t_l + round(parts["download"] * 1e9)
@@ -542,11 +551,14 @@ class Core:
     def _count_verify_parts(self, parts: dict, t_end: int) -> None:
         """The kernel call's counters as phases: `verify_prelude` (host
         prelude wall), `verify_window_tables` (the wall of the window
-        table lookups; calls = tables built) and `verify_signatures`
-        (the call's wall to `t_end`; calls = signatures)."""
+        table lookups; calls = tables built), `verify_window_hits` (no
+        wall; calls = lookups served without a build) and
+        `verify_signatures` (the call's wall to `t_end`; calls =
+        signatures)."""
         self.count_phase("verify_prelude", round(parts["prelude"] * 1e9))
         self.count_phase("verify_window_tables", round(parts["tables_s"] * 1e9),
                          parts["tables"])
+        self.count_phase("verify_window_hits", 0, parts["table_hits"])
         self.count_phase("verify_signatures", t_end - parts["start_ns"],
                          parts["signatures"])
 

@@ -10,12 +10,20 @@ CUDA kernel csrc/p256.cu on a CUDA device, its plain PyTorch version
 Split of labour (the JAX package's, verdicts pinned against the host
 backends by tests/test_torch_p256.py):
 
-- host: range checks, per-creator 4-bit window tables (shared with the
-  pure fallback's `_q_window` LRU), w = s^-1 via ONE Montgomery batched
-  inversion, u1/u2 nibble decomposition, and the verdict `x mod N == r`
-  on the Jacobian point in big ints, without an inversion (`_verdict`);
+- host: range checks, per-creator 4-bit window tables (`WindowTables`,
+  below), w = s^-1 via ONE Montgomery batched inversion, u1/u2 nibble
+  decomposition, and the verdict `x mod N == r` on the Jacobian point
+  in big ints, without an inversion (`_verdict`);
 - device: the 64-nibble dual-window ladder (4 doublings and at most 2
   mixed additions per nibble), a team of 8 lanes per signature.
+
+The window tables live in one store per process, `window_tables`. A
+node's `Core` registers its peer set's public keys there: each of their
+tables is built at the key's first verify and then kept for the life of
+the process, never evicted (2 KB a key). Any other key goes through an
+LRU of 256 tables. A sync batch draws its creators from the whole peer
+set, so at 1,024 peers an LRU of 256 alone evicts nearly every table
+before its next use, and a table costs ~0.3 ms to build.
 
 One call of `verify_batch` makes one host-to-device copy (the digits
 and the window tables, packed into one pinned staging tensor that the
@@ -44,7 +52,8 @@ import contextlib
 import functools
 import threading
 import time
-from typing import List, Optional, Sequence, Tuple
+from collections import OrderedDict
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,18 +118,11 @@ def _nibbles_of(values: Sequence[int]) -> np.ndarray:
         len(values), _NIBBLES).astype(np.int32)
 
 
-# Window tables built on each thread (verify_batch reads its own
-# thread's count before and after its lookups).
-_built = threading.local()
-
-
-@functools.lru_cache(maxsize=256)
 def _q_window_limbs(pub: bytes) -> np.ndarray:
     """Per-creator window table as a (16, 2, 16) limb array: entry i is
     i*Q affine (x, y); entry 0 is a never-addressed placeholder (nibble
-    0 keeps the accumulator). Cached per creator alongside _fallback's
-    own big-int window LRU."""
-    _built.n = getattr(_built, "n", 0) + 1
+    0 keeps the accumulator). Built anew on every call; `WindowTables`
+    keeps them."""
     pt = _fb.pub_key_from_bytes(pub)  # raises ValueError off-curve
     win = _fb._q_window(pt.x, pt.y)
     arr = np.zeros((16, 2, _LIMBS), dtype=np.int32)
@@ -128,6 +130,60 @@ def _q_window_limbs(pub: bytes) -> np.ndarray:
         arr[i, 0] = _to_limbs(win[i][0])
         arr[i, 1] = _to_limbs(win[i][1])
     return arr
+
+
+_LRU_TABLES = 256  # tables kept of keys no one registered
+
+
+class WindowTables:
+    """The window tables of verify_batch by creator key. Keys registered
+    as the peer set's are pinned: each table is built at its key's
+    first lookup and never evicted. Any other key's table sits in an
+    LRU of _LRU_TABLES. A key off the curve is never stored: its lookup
+    raises every time. Thread-safe; a table is built outside the lock,
+    so two threads may build one key's table at once."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._peers: set = set()
+        self._pinned: dict = {}
+        self._lru: OrderedDict = OrderedDict()
+
+    def register(self, pubs: Iterable[bytes]) -> None:
+        """Pin the tables of the public keys `pubs` (built lazily).
+        Registering a key again changes nothing."""
+        with self._lock:
+            self._peers.update(pubs)
+
+    def lookup(self, pub: bytes) -> Tuple[np.ndarray, bool]:
+        """(table, built): the table of `pub` and whether this lookup
+        built it. Raises ValueError for a malformed key."""
+        with self._lock:
+            arr = self._pinned.get(pub)
+            if arr is None:
+                arr = self._lru.get(pub)
+                if arr is not None:
+                    self._lru.move_to_end(pub)
+        if arr is not None:
+            return arr, False
+        arr = _q_window_limbs(pub)
+        with self._lock:
+            if pub in self._peers:
+                self._pinned[pub] = arr
+            else:
+                self._lru[pub] = arr
+                if len(self._lru) > _LRU_TABLES:
+                    self._lru.popitem(last=False)
+        return arr, True
+
+    def clear(self) -> None:
+        """Drop every table; the registrations stay."""
+        with self._lock:
+            self._pinned.clear()
+            self._lru.clear()
+
+
+window_tables = WindowTables()
 
 
 _G_WIN_LIMBS = np.zeros((16, 2, _LIMBS), dtype=np.int32)
@@ -411,39 +467,44 @@ def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
 
     `parts`, if a dict, receives the call's counters: "start_ns" (its
     perf_counter_ns at entry), "signatures" (in the call), "tables"
-    (window tables built, one per distinct creator key the cache did not
-    hold), "tables_s" (the wall of those lookups) and the wall seconds
-    of each of PARTS that ran ("prelude" only, when no signature
-    reaches the ladder). The stream is not synchronised for them: then
-    "upload" and "kernel" are the host's enqueue and "download" waits
-    for the device. `sync_parts` synchronises after the upload and after
-    the kernel, which splits the device's time between them."""
+    (window tables built, one per distinct creator key `window_tables`
+    did not hold), "table_hits" (signatures whose creator's table was
+    on hand, with no build), "tables_s" (the wall of the table lookups)
+    and the wall seconds of each of PARTS that ran ("prelude" only,
+    when no signature reaches the ladder). The stream is not
+    synchronised for them: then "upload" and "kernel" are the host's
+    enqueue and "download" waits for the device. `sync_parts`
+    synchronises after the upload and after the kernel, which splits
+    the device's time between them."""
     dev = resolve_device(device)
     t0 = time.perf_counter_ns()
     n = len(pubs)
     verdicts: List[Optional[bool]] = [False] * n
-    qwins = [None] * n
+    tables: dict = {}
+    built = 0
+    for pub in dict.fromkeys(pubs):  # each distinct key once
+        try:
+            tables[pub], new = window_tables.lookup(pub)
+        except ValueError:
+            tables[pub] = None
+        else:
+            built += new
     live: List[int] = []
-    cache: dict = {}
-    built0 = getattr(_built, "n", 0)
+    qwins: List[np.ndarray] = []
+    hits = -built  # every signature of a well-formed key but the builds
     for i, pub in enumerate(pubs):
-        if pub not in cache:
-            try:
-                cache[pub] = _q_window_limbs(pub)
-            except ValueError:
-                cache[pub] = None
-        arr = cache[pub]
+        arr = tables[pub]
         if arr is None:
             verdicts[i] = None
             continue
+        hits += 1
         r, s = sigs[i]
-        if not (1 <= r < N and 1 <= s < N):
-            continue
-        qwins[i] = arr
-        live.append(i)
+        if 1 <= r < N and 1 <= s < N:
+            live.append(i)
+            qwins.append(arr)
     t_tables = time.perf_counter_ns()
     if parts is not None:
-        parts.update(start_ns=t0, signatures=n, tables=getattr(_built, "n", 0) - built0,
+        parts.update(start_ns=t0, signatures=n, tables=built, table_hits=hits,
                      tables_s=(t_tables - t0) * 1e-9)
     if not live:
         _fill_parts(parts, t0, [("prelude", t_tables)])
@@ -463,7 +524,7 @@ def verify_batch(pubs: Sequence[bytes], digests: Sequence[bytes],
     view = stage.numpy()
     view[:b * _NIBBLES] = _nibbles_of(u1).ravel()
     view[b * _NIBBLES:2 * b * _NIBBLES] = _nibbles_of(u2).ravel()
-    np.stack([qwins[i] for i in live], out=view[2 * b * _NIBBLES:].reshape(b, 16, 2, _LIMBS))
+    np.concatenate(qwins, out=view[2 * b * _NIBBLES:].reshape(b * 16, 2, _LIMBS))
     stream = _verify_stream(dev) if cuda else None
     marks = [("prelude", time.perf_counter_ns())]
 

@@ -38,11 +38,13 @@ ALLOWED = {
     "node/config.py": [(12, 12), (87, 94), (131, 136), (149, 153), (180, 188)],
     # The engine seam (engine="torch", the default), device_verify on
     # the engine's device (resolved at construction, passed to each
-    # verify), the port's logger name. The span ring shared with the
-    # engine; count_phase; the sync's child spans, its verify's kernel
-    # counters and lock retake (no wire_unpack stamp); pass ids on the
-    # dispatch/collect spans and the empty-pass count; no
-    # engine_overlap phase.
+    # verify), the port's logger name. With device_verify the Core
+    # registers its participants' keys in the kernel's window-table
+    # store (121-128). The span ring shared with the engine;
+    # count_phase; the sync's child spans, its verify's kernel counters
+    # (window tables built and hits, 516) and lock retake (no
+    # wire_unpack stamp); pass ids on the dispatch/collect spans and the
+    # empty-pass count; no engine_overlap phase.
     "node/core.py": [(35, 35), (53, 118), (121, 128), (154, 154), (241, 241),
                      (250, 251), (255, 255), (468, 472), (475, 477), (496, 504),
                      (516, 516), (594, 594), (724, 726), (743, 747), (854, 855),

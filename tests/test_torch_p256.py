@@ -20,7 +20,11 @@ Jacobian limbs and verdicts are integers).
   the kernel's instructions a signature on a listing of its shape;
 - the wrapper on a CUDA tensor with no GPU raises and never takes the
   plain version; on a CPU tensor it takes the plain version without a
-  launch.
+  launch;
+- the window-table store (`WindowTables`): a registered peer set's
+  tables are built once, at their key's first verify, and never
+  evicted; other keys go through an LRU of 256; a malformed registered
+  key is never stored; a device-verify Core registers its participants.
 
 The corpus (chip_smoke.p256_corpus: tests/test_crypto.py's, rebuilt
 with the port's crypto) is signed with the deterministic signer
@@ -40,6 +44,8 @@ import torch
 from babble_tpu.ops import p256 as jp256
 from babble_tpu_torch import crypto
 from babble_tpu_torch.crypto import _fallback as fb
+from babble_tpu_torch.hashgraph import InmemStore
+from babble_tpu_torch.node import Core
 from babble_tpu_torch.ops import p256
 from chip_smoke import p256_corpus as corpus
 from chip_smoke import p256_degeneracies as degeneracies
@@ -179,6 +185,117 @@ def test_verify_batch_parts():
     none = {}
     p256.verify_batch(pubs[6:9], digests[6:9], sigs[6:9], device="cpu", parts=none)
     assert [k for k in none if k in p256.PARTS] == ["prelude"]
+
+
+@pytest.fixture
+def store(monkeypatch):
+    """A fresh window-table store in place of the process's own."""
+    tables = p256.WindowTables()
+    monkeypatch.setattr(p256, "window_tables", tables)
+    return tables
+
+
+@pytest.fixture(scope="module")
+def peer_keys():
+    """A 1,024-peer network's keys and public keys."""
+    keys = [crypto.key_from_seed(15_000 + i) for i in range(1024)]
+    return keys, [crypto.pub_key_bytes(k) for k in keys]
+
+
+def _sync_batch(keys, pubs, picks, tag):
+    """A sync's signatures by the creators `picks`, every 97th s
+    corrupted so that both verdicts occur."""
+    digests = [crypto.sha256(b"%s-%d" % (tag, j)) for j in range(len(picks))]
+    sigs = [crypto.sign(keys[k], d) for k, d in zip(picks, digests)]
+    sigs = [(r, (s + 1) % N or 1) if j % 97 == 5 else (r, s)
+            for j, (r, s) in enumerate(sigs)]
+    return [pubs[k] for k in picks], digests, sigs
+
+
+def test_registered_keys_build_each_table_once(store, peer_keys):
+    """1,024 registered keys and three syncs of 1,000 uniform draws: each
+    builds the tables of the keys it is the first to meet, and serves
+    every other lookup. A fourth sync over keys already met builds none,
+    and its every live signature is a hit. Verdicts equal the host
+    backend's."""
+    keys, pubs = peer_keys
+    store.register(pubs)
+    rng = np.random.default_rng(15)
+    seen = set()
+    for b in range(4):
+        if b < 3:
+            picks = rng.integers(0, len(pubs), 1000).tolist()
+        else:
+            picks = rng.choice(sorted(seen), 250).tolist()
+        bp, bd, bs = _sync_batch(keys, pubs, picks, b"sync%d" % b)
+        parts = {}
+        got = p256.verify_batch(bp, bd, bs, device="cpu", parts=parts)
+        want = crypto.verify_batch(bp, bd, bs)
+        assert got == want and True in got and False in got
+        first = set(picks) - seen
+        assert parts["tables"] == len(first) and parts["signatures"] == len(picks)
+        assert parts["table_hits"] == len(picks) - len(first)
+        seen |= first
+    assert parts["tables"] == 0 and parts["table_hits"] == len(picks)
+    assert set(store._pinned) == {pubs[k] for k in seen} and not store._lru
+
+
+def test_unregistered_keys_go_through_an_lru(store, peer_keys):
+    """Keys nobody registered: the 257th distinct key evicts the least
+    recently used; a registered key outlives them all."""
+    _, pubs = peer_keys
+    pinned, rest = pubs[0], pubs[1:]
+    store.register([pinned])
+    assert store.lookup(pinned)[1]
+    assert [store.lookup(k)[1] for k in rest[:256]] == [True] * 256
+    assert not store.lookup(rest[0])[1]  # now the most recent
+    assert store.lookup(rest[256])[1]  # evicts rest[1]
+    assert len(store._lru) == 256 and rest[1] not in store._lru
+    assert store.lookup(rest[1])[1]  # built again, evicting rest[2]
+    assert not store.lookup(rest[0])[1]
+    assert not store.lookup(pinned)[1] and list(store._pinned) == [pinned]
+    table, built = store.lookup(rest[300])
+    assert built and (table == p256._q_window_limbs(rest[300])).all()
+    store.clear()
+    assert not store._pinned and not store._lru and store._peers == {pinned}
+    assert store.lookup(pinned)[1]
+
+
+def test_malformed_registered_key_is_never_stored(store):
+    """A registered creator off the curve gives None at each of its
+    signatures, in every call, and the rest of the batch is verified."""
+    pubs, digests, sigs, expected = corpus()
+    bad = [p for p, e in zip(pubs, expected) if e is None]
+    assert len(bad) == 1
+    store.register(pubs)
+    for call in range(2):
+        parts = {}
+        assert p256.verify_batch(pubs, digests, sigs, device="cpu", parts=parts) == expected
+        assert bad[0] not in store._pinned and bad[0] not in store._lru
+        assert parts["tables"] == (3 if call == 0 else 0)
+        assert parts["tables"] + parts["table_hits"] == sum(e is not None for e in expected)
+    assert set(store._pinned) == set(pubs) - set(bad)
+
+
+def test_device_verify_core_registers_its_participants(store):
+    """A Core with device verify pins its participants' keys (again for
+    a second Core of the same peers: no change); one without registers
+    nothing."""
+    keys = [crypto.key_from_seed(16_000 + i) for i in range(3)]
+    participants = {"0x" + crypto.pub_key_bytes(k).hex().upper(): i
+                    for i, k in enumerate(keys)}
+    want = {crypto.pub_key_bytes(k) for k in keys}
+
+    def core(device_verify):
+        return Core(0, keys[0], participants, InmemStore(participants, 100), engine="host",
+                    engine_opts={"device": "cpu"}, device_verify=device_verify)
+
+    core(False)
+    assert store._peers == set()
+    core(True)
+    assert store._peers == want
+    core(True)
+    assert store._peers == want and not store._pinned
 
 
 def test_verify_batch_without_live_lanes():

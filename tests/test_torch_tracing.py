@@ -225,8 +225,9 @@ def _keys(n, seed=9100):
 def test_verify_counters_and_sync_spans(monkeypatch):
     """A torch Core with device verify on the CPU: the sync's children
     on the ring, verify_batch's parts as its counters (one window table
-    per distinct creator key on a cold cache) and the lock retake; a
-    bare Core beside it records no span."""
+    per distinct creator key on a cold store, a hit for every other
+    signature) and the lock retake; a bare Core beside it records no
+    span and builds no table: both Cores pinned the same peers'."""
     keys, participants = _keys(3)
     ring = SpanRing(256)
     dev = Core(0, keys[0], participants, InmemStore(participants, 1000), engine="torch",
@@ -244,7 +245,7 @@ def test_verify_counters_and_sync_spans(monkeypatch):
         return out
 
     monkeypatch.setattr(p256, "verify_batch", spying)
-    p256._q_window_limbs.cache_clear()
+    p256.window_tables.clear()
     try:
         for c in [dev, bare] + peers:
             c.init()
@@ -255,13 +256,16 @@ def test_verify_counters_and_sync_spans(monkeypatch):
         assert len(seen) == 2
         parts = seen[0]
         assert parts["tables"] == 2 and parts["signatures"] == 3
+        assert parts["table_hits"] == 1  # one creator signed twice
         ph = dev.phase_ns
         assert ph["verify_window_tables"][1:] == [round(parts["tables_s"] * 1e9), 2]
+        assert ph["verify_window_hits"][1:] == [0, 1]
         assert ph["verify_prelude"][1:] == [round(parts["prelude"] * 1e9), 1]
         assert ph["verify_signatures"][2] == 3
         assert ph["sync_lock_wait"][2] == 1
         assert "wire_unpack" not in ph
-        assert seen[1]["tables"] == 0  # the bare Core's keys were cached
+        # The bare Core's keys were pinned by the first sync.
+        assert seen[1]["tables"] == 0 and seen[1]["table_hits"] == seen[1]["signatures"]
         sp = by_name(ring)
         sync = sp["sync"][0]
         assert sync["parent"] == 0
@@ -272,7 +276,7 @@ def test_verify_counters_and_sync_spans(monkeypatch):
         steps = [sp[n][0] for n in ("verify.prelude", "verify.launch", "verify.wait",
                                     "verify.epilogue")]
         assert all(s["parent"] == verify["id"] for s in steps)
-        assert steps[0]["args"] == {"signatures": 3, "tables": 2}
+        assert steps[0]["args"] == {"signatures": 3, "tables": 2, "table_hits": 1}
         assert verify["t0"] <= steps[0]["t0"] and steps[-1]["t1"] <= verify["t1"]
         assert all(a["t1"] == b["t0"] for a, b in zip(steps, steps[1:]))
         assert bare.trace.capacity == 0 and len(bare.trace) == 0
