@@ -11,14 +11,19 @@ Metrics of the record (benchmark/metrics/*.py read them):
 - job_bytes: [(peak device bytes allocated during a join, events its
   engine held when the peak was reached, events it took)] of the joins
   of the window;
-- phase sums of the window's Cores (ns), syncs, events synced, passes;
+- phase_ns: every phase the window's Cores counted, summed as
+  [ns, calls]; syncs, events synced, passes;
 - traced run: host spans, the device trace, B1 and B9 launches with
-  their bounds, torch calls a pass (counted in the warm job).
+  their bounds, torch calls a pass (counted in the warm job), and
+  program_spans: each window Core keeps a span ring, and each span name
+  that closed inside the traced window gets its count, total and median
+  ns (program_spans_dropped: what the rings evicted).
 """
 
 from __future__ import annotations
 
 import gc
+import statistics
 import sys
 import time
 
@@ -28,7 +33,7 @@ import devtrace
 import reference
 import stream
 
-PHASES = ("sync", "verify", "verify_device-p256")  # the readers' phases
+RING = 1 << 16  # spans a traced Core keeps: far above a join's (~20 a sync)
 
 
 def log(msg: str) -> None:
@@ -53,6 +58,20 @@ class Calls:
         self.mode = Mode
 
 
+def program_spans(rings, t0, t1):
+    """Count, total and median ns of each span name of the rings that
+    closed inside [t0, t1] (perf_counter seconds)."""
+    lo, hi = round(t0 * 1e9), round(t1 * 1e9)
+    durs = {}
+    for ring in rings:
+        for sp in ring.snapshot():
+            if "flow" not in sp and lo <= sp["t1"] <= hi:
+                durs.setdefault(sp["name"], []).append(sp["t1"] - sp["t0"])
+    return {name: {"count": len(d), "total_ns": sum(d),
+                   "median_ns": statistics.median(d)}
+            for name, d in sorted(durs.items())}
+
+
 def run(cfg, traffic, seed, seconds, trace, device, t_start):
     import torch
 
@@ -62,7 +81,7 @@ def run(cfg, traffic, seed, seconds, trace, device, t_start):
     from babble_tpu_torch.node import core as core_mod
     from babble_tpu_torch.node.core import Core
     from babble_tpu_torch.ops import hopper_kernels
-    from babble_tpu_torch.telemetry import Registry
+    from babble_tpu_torch.telemetry import Registry, SpanRing
 
     node = cfg["node"]
     cuda = device == "cuda"
@@ -108,13 +127,13 @@ def run(cfg, traffic, seed, seconds, trace, device, t_start):
         hopper_kernels.strongly_see_gathered = ssg_traced
         hopper_kernels.launch_p256_dual_window = p256_traced
 
-    def new_core(blocks):
+    def new_core(blocks, ring):
         core = Core(st.silent, key, st.participants,
                     InmemStore(st.participants, int(node["cache_size"])),
                     commit_callback=blocks.append, engine=node["engine"],
                     engine_prewarm=True, engine_opts={"device": device},
                     device_verify=bool(node["device_verify"]),
-                    registry=Registry())
+                    trace=ring, registry=Registry())
         core.init()
         hg = core.hg
         hg.read_wire_batch = spans.wrap("from_wire", hg.read_wire_batch)
@@ -143,16 +162,17 @@ def run(cfg, traffic, seed, seconds, trace, device, t_start):
                     return _fn(*a, **kw)
             setattr(core, name, inner)
 
-    def job(window_end=None, on_step=None, counting=False, n_frames=None):
+    def job(window_end=None, on_step=None, counting=False, n_frames=None, ring=None):
         """One join: the node takes the stream's frames (the first
         `n_frames`, or until `window_end`), then passes run until
-        nothing new is ordered. Returns a dict: capture, events fed,
-        events ordered by window_end, peak bytes, events held, phase
-        sums, pass walls, error."""
+        nothing new is ordered. `ring` is the Core's span ring (None:
+        none, as a node without tracing). Returns a dict: capture,
+        events fed, events ordered by window_end, peak bytes, events
+        held, phase sums, pass walls, error."""
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         blocks = []
-        core = spans.wrap("new_core", new_core)(blocks)
+        core = spans.wrap("new_core", new_core)(blocks, ring)
         if counting:
             count_calls(core)
         sync = spans.wrap("sync", core.sync)
@@ -226,8 +246,10 @@ def run(cfg, traffic, seed, seconds, trace, device, t_start):
     trace_s = min(float(traffic.get("trace_s", seconds)), seconds)
 
     def on_step():
+        nonlocal trace_end
         if spans.on and time.perf_counter() >= t_w0 + trace_s:
             spans.on = False
+            trace_end = time.perf_counter()
             prof.stop()
 
     if prof is not None:
@@ -239,8 +261,11 @@ def run(cfg, traffic, seed, seconds, trace, device, t_start):
         prof.t0_ns = time.time_ns()
         spans.on = True
     ordered, job_bytes, phase_sum, n_jobs, walls, fed, fed_in = 0, [], {}, 0, [], 0, 0
+    rings, trace_end = [], t_w1
     while time.perf_counter() < t_w1:
-        out = job(t_w1, on_step)
+        if trace:
+            rings.append(SpanRing(RING))
+        out = job(t_w1, on_step, ring=rings[-1] if trace else None)
         jobs.append(out)
         n_jobs += 1
         ordered += out["ordered"]
@@ -249,13 +274,13 @@ def run(cfg, traffic, seed, seconds, trace, device, t_start):
         fed_in += out["fed_by_end"]
         job_bytes.append((out["peak"], out["held"], out["fed"]))
         peak_all = max(peak_all, out["peak"])
-        for k in PHASES:
-            if k in out["phases"]:
-                ent = phase_sum.setdefault(k, [0, 0])
-                ent[0] += out["phases"][k][1]
-                ent[1] += out["phases"][k][2]
+        for k, (_, ns, n_calls) in out["phases"].items():
+            ent = phase_sum.setdefault(k, [0, 0])
+            ent[0] += ns
+            ent[1] += n_calls
     if prof is not None and spans.on:
         spans.on = False
+        trace_end = time.perf_counter()
         prof.stop()
     errors = [j["err"] for j in jobs if j["err"]]
 
@@ -277,6 +302,8 @@ def run(cfg, traffic, seed, seconds, trace, device, t_start):
                         "device_s": devtrace.kernel_time_s(summ, "p256_dual_window_kernel")}
         rec["trace"] = summ
         rec["torch_calls"] = calls["stage"] + (calls["main"].n if calls["main"] else 0)
+        rec["program_spans"] = program_spans(rings, t_w0, trace_end)
+        rec["program_spans_dropped"] = sum(r.dropped for r in rings)
         rec["torch_call_passes"] = calls["passes"]
         hopper_kernels.strongly_see_gathered = ssg
         hopper_kernels.launch_p256_dual_window = p256_launch

@@ -4,7 +4,11 @@ from a seed, and their wire frames.
 A stream is the events that n - 1 peers create while gossiping with
 each other; the node under test is the n-th participant and is silent
 in it (it counts in n and in the supermajority, and creates no event).
-Each step one active creator records a sync from another active peer:
+A configuration may declare `silent_validators` f more: validators that
+count in n and in the supermajority, hold keys and are participants,
+but create no event and are never an other-parent (missing or crashed
+peers), so n - 1 - f creators remain. Each step one active creator
+records a sync from another active peer:
 its new event's self-parent is its own last event and its other-parent
 the peer's last event, the pattern of the node runtime. Every event
 carries `txs_per_event` short text transactions, each unique, and a
@@ -167,13 +171,19 @@ def _others(creators, active, selector, alpha, rng):
 def generate(cfg: dict, events: int, seed: int, rate: Optional[float] = None,
              topology_seed: Optional[int] = None) -> Stream:
     """The signed stream of `events` events of configuration `cfg`
-    (n, selector, alpha, txs_per_event). Keys, payloads, signatures and
+    (n, selector, alpha, txs_per_event, silent_validators). The silent
+    validators are the last f key indices, n - f ... n - 1, so choosing
+    them draws nothing from either generator: with f = 0 the stream is
+    the one without the key. Keys, payloads, signatures and
     the order of the arrival gaps come from `seed`; who syncs with whom
     comes from `topology_seed` (default `seed`), so a mix that fixes it
     gives every seed the same gossip graph, its participants relabelled
     by their keys. `rate` (events a second) sets Poisson due times;
     without it events fall due 1 ms apart."""
     n = int(cfg["n"])
+    live = n - 1 - int(cfg.get("silent_validators", 0))  # creators
+    if not 2 <= live <= n - 1:
+        raise ValueError(f"need 2 to {n - 1} creators, not {live}")
     rng = np.random.default_rng([seed, 0xB0B])
     topo = np.random.default_rng(
         [seed if topology_seed is None else topology_seed, 0x70B0])
@@ -186,14 +196,13 @@ def generate(cfg: dict, events: int, seed: int, rate: Optional[float] = None,
     participants = {"0x" + p.hex().upper(): pid for pid, p in enumerate(pubs)}
     silent = order.index(0)  # key 0 is the node under test
     pid_of_key = np.argsort(order)  # key index -> participant id
-    active = np.array([c for c in range(n) if c != silent], np.int64)
-    if events < len(active):
+    if events < live:
         raise ValueError("need one event per active peer at least")
 
-    # the graph over key indices 1..n-1, then relabelled to participant ids
-    keys_active = np.arange(1, n, dtype=np.int64)
+    # the graph over key indices 1..live, then relabelled to participant ids
+    keys_active = np.arange(1, live + 1, dtype=np.int64)
     creators = np.concatenate(
-        [keys_active, topo.choice(keys_active, size=events - len(active))])
+        [keys_active, topo.choice(keys_active, size=events - live)])
     others = _others(creators, keys_active, cfg.get("selector", "uniform"),
                      float(cfg.get("alpha", 1.0)), topo)
     creators, others = pid_of_key[creators], pid_of_key[others]
@@ -215,7 +224,7 @@ def generate(cfg: dict, events: int, seed: int, rate: Optional[float] = None,
     for i in range(events):
         c = int(creator[i])
         sp[i] = heads[c]
-        if i >= len(active):
+        if i >= live:
             op[i] = heads[int(others[i])]
         seqs[c] += 1
         index[i] = seqs[c]

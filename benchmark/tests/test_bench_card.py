@@ -21,7 +21,7 @@ def cell_files(name):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", ["peers1024.saturate", "peers64.gossip"])
+@pytest.mark.parametrize("name", ["peers1024.saturate", "peers64.saturate", "peers64.gossip"])
 def test_the_control_fails_at_the_cells_size(card, name):
     bench, _, cfg, traffic = cell_files(name)
     out = control.readings(cfg, traffic, 2**37 + 3, card, float(bench["run_seconds"]))
@@ -29,7 +29,7 @@ def test_the_control_fails_at_the_cells_size(card, name):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", ["peers1024.saturate", "peers64.gossip"])
+@pytest.mark.parametrize("name", ["peers1024.saturate", "peers64.saturate", "peers64.gossip"])
 def test_a_short_run_is_correct(card, name):
     bench, cell, _, _ = cell_files(name)
     out = run.run_cell(bench, cell, 2**37 + 5, 10.0, False, card, time.perf_counter())

@@ -11,6 +11,9 @@ from pathlib import Path
 
 import pytest
 
+import compare
+import control
+import core_loop
 import run
 
 HERE = Path(run.__file__).resolve().parent
@@ -142,3 +145,88 @@ def test_a_broken_timed_path_is_not_correct(monkeypatch, cell, fault):
         fault(monkeypatch)
     out = run_tiny(cell, seconds=3.0 if "saturate" in cell else 5.0)
     assert out["correct"] is (fault is None), out["checks"]
+
+
+def silent16():
+    """A tiny closed loop at n = 16 with 4 silent validators: the 11
+    creators are exactly the supermajority, the BFT bound's edge."""
+    bench, cell, cfg, traffic = tiny("peers1024.saturate", n=16)
+    cfg["silent_validators"] = 4
+    return bench, cell, cfg, traffic
+
+
+@pytest.fixture
+def cores(monkeypatch):
+    """(phase_ns, span ring) of every Core the run builds, in order."""
+    from babble_tpu_torch.node.core import Core
+
+    made, init = [], Core.init
+
+    def spy(self):
+        made.append((self.phase_ns, self.trace))
+        init(self)
+
+    monkeypatch.setattr(Core, "init", spy)
+    return made
+
+
+def test_the_bft_edge_with_silent_validators_is_correct(cores):
+    bench, cell, cfg, traffic = silent16()
+    rec = {}
+    out = run.run_cell(bench, cell, 2**36 + 11, 3.0, False, "cpu", time.perf_counter(),
+                       cfg=cfg, traffic=traffic, record=rec)
+    assert out["correct"], out["checks"]
+    assert rec["ordered_in_window"] > 0
+    # every phase the window's Cores counted (the first Core is the
+    # warm join's), summed as [ns, calls]; no ring in an untraced run
+    window = cores[1:]
+    assert window and all(ring.capacity == 0 for _, ring in cores)
+    want = {}
+    for ph, _ in window:
+        for k, (_, ns, calls) in ph.items():
+            ent = want.setdefault(k, [0, 0])
+            ent[0] += ns
+            ent[1] += calls
+    assert rec["phase_ns"] == want
+    assert {"sync", "verify", "from_wire", "insert", "engine_fame_rr"} <= set(want)
+    assert "program_spans" not in rec
+
+
+def test_the_control_fails_at_the_bft_edge():
+    _, _, cfg, traffic = silent16()
+    out = control.readings(cfg, traffic, 2**36 + 11, "cpu", 3.0)
+    assert sum(out[k] for k in compare.NUMBERS) > 0, out
+
+
+def test_a_traced_run_carries_the_program_spans(cores):
+    bench, cell, cfg, traffic = tiny("peers1024.saturate", trace_s=1.5)
+    rec = {}
+    out = run.run_cell(bench, cell, 2**36 + 13, 3.0, True, "cpu", time.perf_counter(),
+                       cfg=cfg, traffic=traffic, record=rec)
+    assert out["correct"], out["checks"]
+    assert cores[0][1].capacity == 0  # the warm join
+    assert all(ring.capacity == core_loop.RING for _, ring in cores[1:])
+    spans = rec["program_spans"]
+    assert {"engine.stage", "sync", "sync.from_wire", "engine.fame_rr"} <= set(spans)
+    for name in ("engine.stage", "sync"):
+        ent = spans[name]
+        assert ent["count"] > 0 and 0 < ent["median_ns"] <= ent["total_ns"]
+    # only spans that closed inside the traced window: fewer syncs than
+    # the whole window took
+    assert spans["sync"]["count"] < rec["phase_ns"]["sync"][1]
+    assert rec["program_spans_dropped"] == 0
+    assert out["metrics"]["engine.stage_ms.saturate"]["value"] == pytest.approx(
+        spans["engine.stage"]["median_ns"] / 1e6)
+
+
+def test_program_spans_keep_what_closed_in_the_window():
+    from babble_tpu_torch.telemetry import SpanRing
+
+    ring = SpanRing(8)
+    for name, t0, t1 in (("a", 1_000, 2_000), ("a", 2_000, 6_000), ("a", 3_000, 12_000),
+                         ("b", 500, 1_500), ("b", 9_000, 9_500)):
+        ring.record(name, t0, t1)
+    ring.flow("s", 1)
+    got = core_loop.program_spans([ring, SpanRing(0)], 1e-6, 1e-5)
+    assert got == {"a": {"count": 2, "total_ns": 5_000, "median_ns": 2_500},
+                   "b": {"count": 2, "total_ns": 1_500, "median_ns": 750}}

@@ -12,6 +12,8 @@ from test_bench_harness import HERE, ROOT, tiny
 
 GOSSIP = ("node.lock_wait_ms_per_s.gossip", "node.cadence_sleep_mean_ms.gossip",
           "node.empty_pass_pct.gossip")
+SATURATE = ("verify.prelude_us_per_event.saturate", "verify.window_tables_per_sync.saturate",
+            "engine.stage_ms.saturate")
 
 
 def reader(name):
@@ -38,8 +40,38 @@ def test_the_new_metrics_are_declared():
     got = {m["name"]: m for m in bench["per_layer"]}
     for name in GOSSIP:
         m = got[name]
-        assert m["workloads"] == ["peers64.gossip"] and m["moves"] == "commit_p50_ms"
+        assert m["workloads"] == ["peers64.gossip"] and m["moves"] == "device_bytes_per_event"
         assert m["source"] == "program_counter"
+
+
+def test_the_saturate_readers():
+    rec = {"phase_ns": {"verify_prelude": [4_000_000, 4], "verify_window_tables": [10, 6],
+                        "verify_signatures": [9_000_000, 4_000], "sync": [1, 4]},
+           "program_spans": {"engine.stage": {"count": 3, "total_ns": 9_000_000,
+                                              "median_ns": 2_500_000}}}
+    assert [reader(n).read(rec) for n in SATURATE] == pytest.approx([1.0, 1.5, 2.5])
+    # no table built in the window reads 0 where the prelude is counted
+    del rec["phase_ns"]["verify_window_tables"]
+    assert reader(SATURATE[1]).read(rec) == 0.0
+    # a record without the source (host verify, an untraced run) reads nothing
+    bare = {"phase_ns": {"sync": [1, 4], "verify": [1, 4]}}
+    assert [reader(n).read(bare) for n in SATURATE] == [None] * 3
+    assert [reader(n).read({}) for n in SATURATE] == [None] * 3
+
+
+def test_the_saturate_metrics_are_declared():
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    got = {m["name"]: m for m in bench["per_layer"]}
+    for name in SATURATE:
+        m = got[name]
+        assert m["workloads"] == ["peers1024.saturate", "peers64.saturate"]
+        assert m["moves"] == "ingested_events_per_s"
+    # every saturate metric reads in both saturate cells but the bytes an
+    # event held (at n = 64 a pass's transient peak, not the engine's growth)
+    for m in bench["per_layer"] + bench["end_to_end"]:
+        if "peers1024.saturate" in m.get("workloads", []):
+            assert ("peers64.saturate" in m["workloads"]) is (
+                m["name"] != "device_bytes_per_event"), m["name"]
 
 
 def test_idle_by_program_span():
@@ -71,6 +103,6 @@ def test_a_traced_run_through_the_program_spans(cell, seconds):
     assert prog["engine.stages"] > 0 and prog["engine.stage_ms"] > 0
     assert out["end_to_end"]
     if "gossip" in cell:
-        for name in GOSSIP:
+        for name in GOSSIP + ("commit.p50_ms.gossip", "commit.p95_ms.gossip"):
             assert name in out["metrics"], name
         assert prog["consensus.sleep_ms_median"] > 0
