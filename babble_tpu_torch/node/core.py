@@ -916,6 +916,11 @@ class Core:
                 ent[0] = ns
                 ent[1] += ns
                 ent[2] += 1
+        # The engine's work items (passes, fame steps, undecided rounds,
+        # frontier rounds, redos): counts in the calls column, no time.
+        take = getattr(engine, "take_pass_counts", None)
+        for name, items in (take() if take else {}).items():
+            self.phase_ns.setdefault(f"engine_{name}", [0, 0, 0])[2] += items
 
     def _merge_store_phases(self) -> None:
         # Durable-commit wall (FileStore WAL write + fsync) as a phase:

@@ -363,7 +363,7 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
                      chain_th, chain_tl, rx0, first_undec_prev, und_ids,
                      n_und, t_start,
                      *, n, sm, rcap, bp, rw, iw, cb, tw, mark=None,
-                     k_bound=None, reads=None):
+                     k_bound=None, reads=None, on_fame=None):
     """The whole per-sync consensus tail — frontier sweep, new-event
     rounds, fame merge, round received and median timestamps — ending
     in ONE packed int32 tensor, so the host pays one device->host copy
@@ -391,7 +391,9 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     successful pull. `mark(name)`, when given, is called after the
     frontier, the batch rounds and fame + round received. `k_bound` is
     a host bound on the chain lengths for the frontier's search; fame's
-    host reads are appended to `reads` when a list is given.
+    host reads are appended to `reads` when a list is given, and
+    `on_fame(t0_ns, rows, steps)`, when given, is called after fame
+    with its start stamp, its live rows and its depth steps.
 
     Every torch call here is a release and re-take of the interpreter
     lock, which costs a node whose gossip threads share the process
@@ -448,9 +450,14 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     r_live = max(0, min(rw, rho_min + t_end - rx0))
     famous_comp = torch.zeros((rw, n), dtype=I32, device=dev)
     if r_live >= 2:
+        t_fame, steps = time.perf_counter_ns(), []
         famous_comp[:r_live] = kernels.decide_fame(
             wt_win[:r_live].contiguous(), la, fd, index, coin, n=n, sm=sm, r=r_live,
-            reads=reads)
+            reads=steps)
+        if reads is not None:
+            reads += steps
+        if on_fame is not None:
+            on_fame(t_fame, r_live, len(steps))
     wt_valid_f = wt_win >= 0
     mergeable = (in_list_win[:, None] & wt_valid_f
                  & (famous_prev_win == FAME_UNDEFINED))
@@ -838,6 +845,9 @@ class IncrementalEngine:
         self.c_pull_bytes = 0
         # Redo dispatches over the engine's lifetime.
         self.redo_count = 0
+        # Work items of the passes collected since the owner last took
+        # them (take_pass_counts; TRACING.md's engine_* counters).
+        self._pass_counts: dict = {}
         # Host reads of device values by the last collected pass: one
         # per frontier round swept and one per packed pull.
         self.host_syncs = 0
@@ -1285,6 +1295,14 @@ class IncrementalEngine:
     def inflight(self) -> bool:
         return self._inflight is not None
 
+    def take_pass_counts(self) -> dict:
+        """The work items counted since the last call, by name: passes
+        collected, fame's depth steps (every dispatch of a pass, redos
+        included), the undecided rounds left after each collect, the
+        frontier rows each pass's final dispatch swept, and redos."""
+        out, self._pass_counts = self._pass_counts, {}
+        return out
+
     def _sync(self) -> None:
         """Wait for the engine's device work (a no-op off CUDA)."""
         for st in self._streams:
@@ -1496,6 +1514,12 @@ class IncrementalEngine:
                               pass_id=pp.pass_id)
             last = now
 
+        def on_fame(t_fame, rows, steps):
+            # inside engine.fame_rr's interval
+            self.trace.record("engine.fame", t_fame, time.perf_counter_ns(),
+                              cat="engine", rows=rows, steps=steps,
+                              pass_id=pp.pass_id)
+
         fused_kw = dict(n=n, sm=sm, rcap=rcap, bp=pp.bp, rw=pp.rw, iw=pp.iw,
                         cb=pp.cb, tw=pp.tw_i)
         with self._on_stream():
@@ -1511,7 +1535,8 @@ class IncrementalEngine:
             pp.fame_reads = []
             packed, pp.rounds_out, pp.rr_out = _consensus_fused(
                 *fused_args, **fused_kw, mark=mark,
-                k_bound=int(pp.chain_len0.max(initial=0)), reads=pp.fame_reads)
+                k_bound=int(pp.chain_len0.max(initial=0)), reads=pp.fame_reads,
+                on_fame=on_fame)
             pp.packed_dev = packed
             if self._stream is None:
                 pp.packed_host, pp.computed, pp.pulled = packed, None, None
@@ -1587,7 +1612,8 @@ class IncrementalEngine:
     def _collect_pass(self, pp: PendingPass, unlocked) -> RunDelta:
         n = self.n
         _t = time.perf_counter_ns
-        syncs = 0
+        syncs = fame_steps = 0
+        redo0 = self.redo_count
         # The stage wait, the pull and the redo loop run with the
         # caller's lock RELEASED: everything below uses the pass
         # snapshot, so interleaved appends are safe.
@@ -1634,6 +1660,7 @@ class IncrementalEngine:
                 # One flag read per frontier round swept, fame's reads,
                 # one pull.
                 syncs += t_end - pp.t0 + len(pp.fame_reads) + 1
+                fame_steps += len(pp.fame_reads)
                 if t_end == pp.rcap:
                     # Frontier overflow: fame/rr ran against a truncated
                     # table — a safe but incomplete subset. Redo bigger.
@@ -1797,6 +1824,12 @@ class IncrementalEngine:
         self._rounds_d = pp.rounds_out
         self._rr_d = pp.rr_out
         self.host_syncs = syncs
+        counts = self._pass_counts
+        for name, items in (("passes", 1), ("fame_steps", fame_steps),
+                            ("undecided_rounds", len(self.undecided_rounds)),
+                            ("frontier_rounds", t_end - pp.t0),
+                            ("redos", self.redo_count - redo0)):
+            counts[name] = counts.get(name, 0) + items
 
         _end = _t()
         self.phase_ns["apply"] = self.phase_ns.get("apply", 0) + _end - _now

@@ -44,7 +44,9 @@ ALLOWED = {
     # count_phase; the sync's child spans, its verify's kernel counters
     # (window tables built and hits, 516) and lock retake (no
     # wire_unpack stamp); pass ids on the dispatch/collect spans and the
-    # empty-pass count; no engine_overlap phase.
+    # empty-pass count; no engine_overlap phase: in its place (865-870)
+    # the engine's work items (take_pass_counts: passes, fame steps,
+    # undecided rounds, frontier rounds, redos) go into the counters.
     "node/core.py": [(35, 35), (53, 118), (121, 128), (154, 154), (241, 241),
                      (250, 251), (255, 255), (468, 472), (475, 477), (496, 504),
                      (516, 516), (594, 594), (724, 726), (743, 747), (854, 855),

@@ -355,6 +355,41 @@ def test_frame_reset_engine_matches_jax():
     assert min(t.undecided_rounds + [t.last_consensus_round]) >= 4
 
 
+def test_counters_and_spans_leave_the_edge_word_for_word():
+    """At the BFT bound's edge (n = 16 with 11 creators, the
+    supermajority exactly) the port's engine, counting its work items
+    (take_pass_counts) and recording its spans (engine.fame among them)
+    on a ring, gives every packed buffer and RunDelta of the JAX engine
+    word for word. (The one-shot pipeline would take the DAG's 11 as
+    n, so it is left out.)"""
+    from babble_tpu_torch.telemetry.trace import SpanRing
+
+    n, e = 16, 600
+    dag, _ = synthetic_dag(11, e, seed=5)
+    ring = SpanRing(1 << 14)
+    j = jinc.IncrementalEngine(n, **SMALL)
+    t = tinc.IncrementalEngine(n, device="cpu", trace=ring, **SMALL)
+    steps = 0
+    try:
+        for k in range(0, e, 60):
+            feed(j, dag, k, k + 60)
+            feed(t, dag, k, k + 60)
+            pj, pt = j.dispatch(), t.dispatch()
+            pj.ready.wait()
+            pt.ready.wait()
+            assert pj.error is None and pt.error is None
+            assert np.array_equal(pt.packed_host.numpy(), np.asarray(pj.packed_dev)), k
+            assert delta(t.collect(pt)) == delta(j.collect(pj)), k
+            counts = t.take_pass_counts()
+            assert counts["passes"] == 1 and counts["redos"] == 0, k
+            steps += counts["fame_steps"]
+    finally:
+        t.close()
+    assert_same_state(t, j)
+    fame = [s for s in ring.snapshot() if s["name"] == "engine.fame"]
+    assert steps > 0 and sum(s["args"]["steps"] for s in fame) == steps
+
+
 def test_one_pass_reaches_the_gathered_kernel(monkeypatch):
     """One pass reaches hopper_kernels.strongly_see_gathered from the
     frontier probe (sees_sm), the skip correction (step) and fame
