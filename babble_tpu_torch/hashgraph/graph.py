@@ -31,6 +31,7 @@ from .frame import Frame
 from .root import Root
 from .round_info import RoundInfo
 from .store import Store
+from .wire_native import WireReader
 
 MAX_INT32 = 2**31 - 1
 
@@ -72,6 +73,7 @@ class Hashgraph:
     ):
         self.participants = participants
         self.reverse_participants = {pid: pk for pk, pid in participants.items()}
+        self.wire_reader = WireReader(self.reverse_participants)
         self.store = store
         self.commit_callback = commit_callback
 
@@ -623,10 +625,15 @@ class Hashgraph:
         body/event encodings are seeded directly from the columns, so
         downstream hashing, signature verification (over the derived
         signed-body blob column), and relay marshal are all memo hits.
-        No per-event wire dict is ever built."""
+        No per-event wire dict is ever built. The native reader
+        (wire_native.py) takes the batch when its library is built; this
+        loop is its fallback."""
         from .event import materialize_wire_event
 
         local, resolve = self._batch_resolver()
+        out = self.wire_reader.read(cols, resolve)
+        if out is not None:
+            return out
         cid = cols.cid.tolist()
         idx = cols.idx.tolist()
         sp_idx = cols.sp_idx.tolist()

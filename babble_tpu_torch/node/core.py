@@ -474,9 +474,19 @@ class Core:
     def _sync_batch(self, unknown, unlocked=None,
                     wrap_fresh_only: bool = False) -> Dict[str, int]:
         t0 = time.perf_counter_ns()
+        reader = self.hg.wire_reader
+        reader.last = None
         events = self.hg.read_wire_batch(unknown)
-        self.trace.record("sync.from_wire", t0, self._timed("from_wire", t0),
-                          cat="sync")
+        t1 = self._timed("from_wire", t0)
+        span = self.trace.record("sync.from_wire", t0, t1, cat="sync")
+        # Rows materialized, and those the native reader built (its
+        # call's wall, with the interpreter lock free).
+        self.count_phase("from_wire_rows", t1 - t0, len(events))
+        if reader.last is not None:
+            rows, n0, n1 = reader.last
+            self.count_phase("from_wire_native", n1 - n0, rows)
+            self.trace.record("sync.from_wire.native", n0, n1, cat="sync", parent=span,
+                              rows=rows)
 
         # Dedup-before-verify (ROADMAP crypto-plane lever 1): an event
         # already in the store OR currently in another batch's unlocked

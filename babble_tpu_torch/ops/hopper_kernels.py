@@ -24,7 +24,8 @@ ops/p256.py and launches it through `launch_p256_dual_window`.
 
 Each source is compiled with nvcc for sm_90a into a library of its own
 under build/kernels/ at the repository root on first use (seconds: a
-plain C entry point, no PyTorch header) and loaded with ctypes. The
+plain C entry point, no PyTorch header) and loaded with ctypes
+(csrc.build_library, csrc.load_library). The
 file name carries a hash of the source and the flags, so an edited
 source is never served by a stale build.
 
@@ -41,18 +42,16 @@ Each wrapper counts its launches, under one lock (`count_launch`):
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
+from ..csrc import build_library, load_library
 from .kernels import strongly_see_counts_chunked as strongly_see_counts_ref
 from .kernels import strongly_see_gathered_ref
 
@@ -74,10 +73,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
 # Each library's entry point and its argument types.
 _ENTRY = {
-    "strongly_see.cu": ("babble_strongly_see_gathered",
-                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
-    "p256.cu": ("babble_p256_dual_window",
-                [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]),
+    "strongly_see.cu": {"babble_strongly_see_gathered": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int)},
+    "p256.cu": {"babble_p256_dual_window": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int)},
 }
 
 
@@ -98,29 +97,12 @@ def build(source: Optional[Path] = None) -> dict:
     library, one nvcc each, all started together. Returns {"path",
     "seconds", "log"} for one source (the library, the nvcc time, 0 for
     an existing build, and nvcc's output, ptxas's register, spill and
-    shared-memory report included), and {source name: that} for all.
-    The output is written under a temporary name and renamed, so
-    concurrent builds never load a half-written file."""
+    shared-memory report included), and {source name: that} for all
+    (csrc.build_library)."""
     if source is None:
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             return dict(zip((s.name for s in SOURCES), pool.map(build, SOURCES)))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(source.read_bytes())
-    lib_path = BUILD_DIR / f"libbabble_{source.stem}_{h.hexdigest()[:16]}.so"
-    if lib_path.exists():
-        return {"path": lib_path, "seconds": 0.0, "log": "(already built)"}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return {"path": lib_path, "seconds": seconds,
-            "log": (proc.stdout + proc.stderr).strip()}
+    return build_library(source, _nvcc, NVCC_FLAGS, BUILD_DIR)
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -128,11 +110,7 @@ def _load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(_PKG / "csrc" / name)["path"]))
-            entry, argtypes = _ENTRY[name]
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            lib = load_library(build(_PKG / "csrc" / name)["path"], _ENTRY[name])
             _libs[name] = lib
         return lib
 

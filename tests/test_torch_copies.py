@@ -30,8 +30,11 @@ ALLOWED = {
     "crypto/_fallback.py": [(16, 16)],
     # The port's docstring; TorchHashgraph.
     "hashgraph/__init__.py": [(1, 1), (34, 34)],
-    # Names the port's device engine in place of the TPU one.
-    "hashgraph/graph.py": [(6, 6)],
+    # Names the port's device engine in place of the TPU one. A columnar
+    # batch goes to the graph's native reader (hashgraph/wire_native.py:
+    # the encodings and digests in one call outside the interpreter lock;
+    # 75, 626, 630); the loop below it stays as the fallback.
+    "hashgraph/graph.py": [(6, 6), (75, 75), (626, 626), (630, 630)],
     # The port's logger name; the engine, device_verify and compile
     # cache comments say what the port does; the torch engine is the
     # default and failover to the host engine is opt-in (threshold 0).
@@ -47,8 +50,11 @@ ALLOWED = {
     # empty-pass count; no engine_overlap phase: in its place (865-870)
     # the engine's work items (take_pass_counts: passes, fame steps,
     # undecided rounds, frontier rounds, redos) go into the counters.
+    # The from_wire_rows and from_wire_native counters and the
+    # sync.from_wire.native span of the native columnar reader, read
+    # from the graph's WireReader.last (474).
     "node/core.py": [(35, 35), (53, 118), (121, 128), (154, 154), (241, 241),
-                     (250, 251), (255, 255), (468, 472), (475, 477), (496, 504),
+                     (250, 251), (255, 255), (468, 472), (474, 477), (496, 504),
                      (516, 516), (594, 594), (724, 726), (743, 747), (854, 855),
                      (865, 870)],
     # The core lock is a TimedLock reporting its waits; the consensus
