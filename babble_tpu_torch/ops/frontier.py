@@ -286,10 +286,6 @@ def frontier_sweep_impl(chain_la, chain_rbase, chain_len, la, fd, rbase,
     return wt_tab, fr_tab, t
 
 
-# The JAX package's jitted name for the same sweep; eager here.
-frontier_sweep = frontier_sweep_impl
-
-
 def rounds_from_frontier(frontier, creator, index, self_parent, rho_min, *, n):
     """Per-event rounds + witness flags from the frontier table.
 

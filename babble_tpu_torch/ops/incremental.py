@@ -49,16 +49,18 @@ there.
 The mesh (`mesh=[device, ...]`, d shards): the JAX package places its
 O(E·n) carries with NamedSharding and lets GSPMD partition the same
 jitted kernels. Here the engine stays one object under one controller
-(ops/mesh.py): the coordinate table is held as d column shards, the
-chain tables and the rank cube as d chain shards, and each stage loops
-over the shards. Closure runs on each column shard with the block's
-reachability computed once; the fd fold gathers the batch's la rows
-whole-width (the pass's one exchange outside the epilogue) and each
-chain shard folds its own chains; the epilogue reads la and fd through
-row views that concatenate the shards' slices, and the frontier probe
-runs once per chain shard. The 1-D event columns and the result
-carries stay whole on the controller (shard 0's device). A single
-device, or no mesh, is the unsharded engine.
+and holds every such table as the list of its d >= 1 parts
+(ops/mesh.py): the coordinate table by column, the chain tables and
+the rank cube by chain; each stage loops over the parts. Closure runs
+on each column part with the block's reachability computed once; the
+fd fold gathers the batch's la rows whole-width (the pass's one
+exchange outside the epilogue) and each chain part folds its own
+chains; the epilogue reads la and fd through row views that
+concatenate the parts' slices, and the frontier probe runs once per
+chain part. The 1-D event columns and the result carries stay whole
+on the controller (part 0's device). Without a mesh, or with one
+device, d = 1: one part, which ops/mesh.py hands to every read as the
+bare table, so the pass is the unsharded engine's, call for call.
 
 Left out: the compiled cost report of the JAX package (XLA cost
 analysis; device telemetry).
@@ -78,11 +80,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..devices import resolve_device
 from ..telemetry.trace import SpanRing
 from . import closure, frontier, hopper_kernels, kernels
 from .kernels import FAME_TRUE, FAME_UNDEFINED, INT32_MAX
-from .mesh import ColumnShards, mesh_devices, nbytes, take_chains
+from .mesh import (Layout, chain_view, column_view, gather_chains, nbytes,
+                   split_chains, take_tables)
 
 I32 = torch.int32
 
@@ -160,21 +162,18 @@ def _set_where(dst, idx, values, ok):
 def _closure_update(la, rb, self_parent, other_parent, creator, index,
                     root_base, b0, b1, *, n, block):
     """Run the closure block body over blocks [b0, b1) in place on the
-    coordinate carries la [cap+1, n] / rb [cap+1]. A list la is the
-    table's column shards, in column order: each block's reachability
-    is computed once and applied to every shard."""
+    coordinate carries la [cap+1, n] / rb [cap+1]. la is the table's
+    column parts, in column order (ops/mesh.py): each block's
+    reachability is computed once and applied to every part, which at
+    d = 1 is body(b, la, rb)."""
     body = closure.make_block_body(
         self_parent, other_parent, creator, index, root_base,
         n=n, block=block)
-    if isinstance(la, list):
-        w = la[0].shape[1]
-        for b in range(b0, b1):
-            blk = body.prep(b, rb)
-            for p, part in enumerate(la):
-                body.apply(blk, part, p * w)
-        return la, rb
+    w = la[0].shape[1]
     for b in range(b0, b1):
-        la, rb = body(b, la, rb)
+        blk = body.prep(b, rb)
+        for p, part in enumerate(la):
+            body.apply(blk, part, p * w)
     return la, rb
 
 
@@ -194,17 +193,11 @@ def _pad_cols(a, *, cols, fill, axis=-1):
     return torch.cat([a, pad], axis)
 
 
-def _each(x, fn, **kw):
-    """fn(x, **kw), or [fn(t, **kw) for each shard] for a sharded carry."""
-    return [fn(t, **kw) for t in x] if isinstance(x, list) else fn(x, **kw)
-
-
 def _pad_ranks(ranks, len_counted, *, cols):
-    """Grow the fd rank cube [n, n, K] -> [n, n, K+cols] (or a chain
-    shard of it, [chains, n, K], with its chains' len_counted). Every
-    counted la value is a chain position < K <= t for the new
-    thresholds t, so the new columns are exactly the per-chain counted
-    length."""
+    """Grow a chain part of the fd rank cube, [chains, n, K] ->
+    [chains, n, K+cols], with its chains' len_counted. Every counted la
+    value is a chain position < K <= t for the new thresholds t, so the
+    new columns are exactly the per-chain counted length."""
     c, n = ranks.shape[:2]
     pad = len_counted.to(ranks.dtype)[:, None, None].expand(c, n, cols)
     return torch.cat([ranks, pad], 2)
@@ -242,22 +235,6 @@ def _chain_ingest(chain_d, chain_th, chain_tl, newtab, newpos,
     return chain_d, chain_th, chain_tl
 
 
-def _tables_chain_write(chain_la, chain_rb, la, rb, newtab, newpos,
-                        *, n, m, k):
-    """Shared prologue of the fd fold: write the batch rows into the
-    resident chain_la/chain_rb tables in place and return the effective
-    la rows (INT32_MAX in pad lanes)."""
-    cap1 = la.shape[0]
-    valid = newtab >= 0
-    ids = torch.where(valid, newtab, cap1 - 1)  # sentinel row, masked below
-    la_new = la[ids]  # [n, m, n]
-    rb_new = rb[ids]  # [n, m]
-    la_eff = torch.where(valid[:, :, None], la_new, INT32_MAX)
-    _write_chain_rows(chain_la, chain_rb, la_eff, torch.where(valid, rb_new, INT32_MAX),
-                      valid, newpos, k=k)
-    return chain_la, chain_rb, la_eff
-
-
 def _write_chain_rows(chain_la, chain_rb, la_eff, rb_eff, valid, newpos, *, k):
     """chain_la[c, newpos[c, j]] = la_eff[c, j] (chain_rb likewise) in
     place, for the valid lanes at positions inside the table; the
@@ -276,15 +253,30 @@ def _tables_update_hist(ranks, chain_la, chain_rb, la, rb, newtab,
     ranks[c, i, t] += #{new events on chain c : la[., i] < t}, as a
     histogram over la values (scatter-add) and an int32 cumulative sum
     along the threshold axis — the form the JAX package runs on every
-    backend but the TPU.
+    backend but the TPU — and write the batch's rows into chain_la and
+    chain_rb. The tables (and newpos) are lists of parts (ops/mesh.py);
+    the batch's la rows are gathered whole-width once, then each chain
+    part writes and folds its own chains.
 
     Bucketing: la = -1 counts for every t >= 0 (bucket 0), la = v >= 0
     for t > v (bucket v+1); pad lanes (INT32_MAX) clip to bucket K and
     never land inside the cumsum's [0, K) window."""
-    k = ranks.shape[2]
-    chain_la, chain_rb, la_eff = _tables_chain_write(
-        chain_la, chain_rb, la, rb, newtab, newpos, n=n, m=m, k=k)
-    _fold_ranks(ranks, la_eff)
+    k = ranks[0].shape[2]
+    la = column_view(la, rb.device)
+    valid = newtab >= 0
+    ids = torch.where(valid, newtab, la.shape[0] - 1)  # sentinel row, masked below
+    la_new = la[ids]  # [n, m, n]
+    rb_new = rb[ids]  # [n, m]
+    la_eff = torch.where(valid[:, :, None], la_new, INT32_MAX)
+    la_parts = split_chains(la_eff, ranks)
+    for args in zip(chain_la, chain_rb, la_parts,
+                    split_chains(torch.where(valid, rb_new, INT32_MAX), ranks),
+                    split_chains(valid, ranks), newpos):
+        _write_chain_rows(*args, k=k)
+    # the histogram peaks with the batch's effective rows alone alive
+    del ids, la_new, rb_new, la_eff, valid, args
+    for r, la_p in zip(ranks, la_parts):
+        _fold_ranks(r, la_p)
     return ranks, chain_la, chain_rb
 
 
@@ -302,46 +294,30 @@ def _fold_ranks(ranks, la_eff):
 
 class _FdRows:
     """Lazy row view of the first-descendant matrix: fd[ids] -> the
-    same [*ids.shape, n] rows _fd_from_ranks would give, gathered
+    [*ids.shape, n] rows of the dense fd (kernels.fd_from_cube's
+    contract with the chain_len clamp fused in), gathered
     straight from the resident rank cube. Every consumer of fd in the
     engine (frontier sweep, fame, consensus timestamps) reads row
     gathers only, so the dense [cap, n] table (512 MB per pass at the
-    n=1024 north star) is never built. A list `ranks` is the cube's
-    chain shards, in chain order: each gives its chains' columns of the
-    rows, concatenated on the creator vector's device."""
+    n=1024 north star) is never built. `ranks` is the list of the cube's
+    chain parts, in chain order (ops/mesh.py): each gives its chains'
+    columns of the rows, concatenated on the creator vector's device."""
 
     def __init__(self, ranks, chain_len, creator, index):
         self.ranks = ranks
         self.chain_len = chain_len
         self.creator = creator
         self.index = index
-        self.k = (ranks[0] if isinstance(ranks, list) else ranks).shape[2]
+        self.k = ranks[0].shape[2]
 
     def __getitem__(self, ids):
         ca = self.creator[ids]
         ix = self.index[ids]
         ia = torch.clamp(ix, 0, self.k - 1)
-        if isinstance(self.ranks, list):
-            raw = torch.cat([torch.movedim(r[:, ca.to(r.device), ia.to(r.device)], 0, -1)
-                             .to(ca.device) for r in self.ranks], -1)
-        else:
-            raw = torch.movedim(self.ranks[:, ca, ia], 0, -1)  # [*S, n]
+        raw = gather_chains(self.ranks, lambda r, c, i: torch.movedim(r[:, c, i], 0, -1),
+                            ca, ia)  # [*S, n]
         fd = torch.where(raw < self.chain_len, raw, INT32_MAX)
         return torch.where((ix >= 0)[..., None], fd, INT32_MAX)
-
-
-def _fd_from_ranks(ranks, chain_len, creator, index, *, n):
-    """fd[a, c] from the resident rank cube: event a = chain[creator_a,
-    index_a], so fd[a, c] = ranks[c, creator_a, index_a], INT32_MAX when
-    the position is past chain c's end (the contract of
-    kernels.fd_from_cube with the chain_len clamp fused in)."""
-    k = ranks.shape[2]
-    e1 = creator.shape[0] - 1
-    ca = creator[:e1]
-    ia = torch.clamp(index[:e1], 0, k - 1)
-    raw = ranks[:, ca, ia].T  # [cap, n]
-    fd = torch.where(raw < chain_len[None, :], raw, INT32_MAX)
-    return torch.where((index[:e1] >= 0)[:, None], fd, INT32_MAX)
 
 
 def _median_pairs(hi_m, lo_m, pick):
@@ -395,14 +371,17 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     `on_fame(t0_ns, rows, steps)`, when given, is called after fame
     with its start stamp, its live rows and its depth steps.
 
+    The O(E·n) tables are lists of parts (ops/mesh.py).
+
     Every torch call here is a release and re-take of the interpreter
     lock, which costs a node whose gossip threads share the process
     far more than the call (ROADMAP C1), so the loops run over the
     window's live rows only and the round-received sweep over row
     chunks."""
-    dev = la.device
-    k = (chain_th[0] if isinstance(chain_th, list) else chain_th).shape[1]
+    dev = rb_vec.device
+    k = chain_th[0].shape[1]
     fd = _FdRows(ranks, chain_len, creator, index)
+    la = column_view(la, dev)
 
     def _mark(name):
         if mark is not None:
@@ -410,8 +389,8 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
 
     # 1. Witness frontier (host loop, one flag read per round).
     wt_tab, fr_tab, t_end = frontier.frontier_sweep_impl(
-        chain_la, chain_rb_tab, chain_len, la, fd, rb_vec, chain,
-        wt_tab, fr_tab, wt_prev, fr_prev, t0, rho_min,
+        chain_view(chain_la), chain_view(chain_rb_tab), chain_len, la, fd,
+        rb_vec, chain_view(chain), wt_tab, fr_tab, wt_prev, fr_prev, t0, rho_min,
         n=n, sm=sm, rcap=rcap, k_bound=k_bound)
     _mark("frontier")
 
@@ -537,13 +516,7 @@ def _consensus_fused(chain_la, chain_rb_tab, chain_len, la, ranks, rb_vec,
     s_cnt = s_mask.sum(1, dtype=I32)
     valid_t = fd_sel <= idxw_sel  # first descendant reaches the witness
     fd_pos = torch.clamp(fd_sel, 0, k - 1)
-    if isinstance(chain_th, list):
-        ts_hi = take_chains(chain_th, fd_pos)
-        ts_lo = take_chains(chain_tl, fd_pos)
-    else:
-        rows_n = torch.arange(n, device=dev)[None, :]
-        ts_hi = chain_th[rows_n, fd_pos]
-        ts_lo = chain_tl[rows_n, fd_pos]
+    ts_hi, ts_lo = take_tables((chain_th, chain_tl), fd_pos)
     # ZERO_TIME for unreached witnesses (sorts first); INT32_MAX pads
     # the non-famous lanes to the end.
     hi_v = torch.where(valid_t, ts_hi, ZERO_TS_HI)
@@ -660,7 +633,7 @@ class PendingPass:
         "rounds_out", "rr_out",
         "dispatched_ns",
         "ready", "error",
-        "pass_id", "parent_span",
+        "pass_id", "parent_span", "timed",
     )
 
 
@@ -682,11 +655,12 @@ class IncrementalEngine:
 
     `mesh` (a sequence of d devices, repeats allowed, or a 2 x d/2 grid
     given a-major; see ops/mesh.py) splits the O(E·n) carries into d
-    shards, shard p on the p-th device: the coordinate table by
+    parts, part p on the p-th device: the coordinate table by
     participant column, the chain tables and the rank cube by chain.
     The controller, which holds everything else, is the mesh's first
     device; `device`, when given too, must be it. `n` must divide over
-    the d shards. `shards(name)` lists a carry's shards.
+    the d parts. Without a mesh, d = 1. `shards(name)` lists a carry's
+    parts.
     """
 
     def __init__(self, n: int, root_round=None, *, capacity: int = 256,
@@ -695,17 +669,11 @@ class IncrementalEngine:
                  mesh=None, device=None, trace: Optional[SpanRing] = None):
         if n < 1:
             raise ValueError("need at least one participant")
-        devs = None if mesh is None else mesh_devices(mesh)
-        if devs is not None and device is not None and mesh_devices([device])[0] != devs[0]:
-            raise ValueError(f"device {device} is not the mesh's first device {devs[0]}")
-        self.device = resolve_device(device) if devs is None else devs[0]
-        # Mesh placement: None is the unsharded engine (one device).
-        self._mesh: Optional[List[torch.device]] = None
-        if devs is not None and len(devs) > 1:
-            if n % len(devs):
-                raise ValueError(
-                    f"participants {n} must divide over {len(devs)} devices")
-            self._mesh = devs
+        # Where the O(E·n) carries live: d >= 1 parts (ops/mesh.py),
+        # part p on _mesh[p]; without a mesh, [self.device].
+        self._layout = Layout(n, mesh, device)
+        self._mesh: List[torch.device] = self._layout.devices
+        self.device = self._mesh[0]
         self.n = n
         self.sm = 2 * n // 3 + 1
         self.block = block
@@ -749,30 +717,19 @@ class IncrementalEngine:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._streams = [] if self._stream is None else [self._stream] + [
-            torch.cuda.Stream(d) for d in dict.fromkeys(self._mesh or ())
+            torch.cuda.Stream(d) for d in dict.fromkeys(self._mesh)
             if d != self.device]
 
         # Device carries: coordinates plus everything the per-sync
         # pipeline would otherwise re-upload or recompute from scratch.
-        # Under a mesh, the column- and chain-sharded ones are lists of
-        # their d shards (ops/mesh.py).
+        # The column- and chain-sharded ones are the lists of their
+        # parts (ops/mesh.py).
         def full(shape, fill, dtype=I32):
             return torch.full(shape, fill, dtype=dtype, device=self.device)
 
-        def by_col(rows, fill):
-            if self._mesh is None:
-                return full((rows, n), fill)
-            w = n // len(self._mesh)
-            return [torch.full((rows, w), fill, dtype=I32, device=d) for d in self._mesh]
-
-        def by_chain(tail, fill):
-            if self._mesh is None:
-                return full((n,) + tail, fill)
-            w = n // len(self._mesh)
-            return [torch.full((w,) + tail, fill, dtype=I32, device=d) for d in self._mesh]
-
+        by_chain = self._layout.chains
         with self._on_stream():
-            self._la = by_col(c1, -1)
+            self._la = self._layout.columns(c1, -1)
             self._rb = full((c1,), -1)
             self._sp_d = full((c1,), -1)
             self._op_d = full((c1,), -1)
@@ -838,8 +795,9 @@ class IncrementalEngine:
         # c_dispatch, c_stage_wait, c_pull (= c_pull_wait + c_pull_xfer),
         # consensus, apply. Device work is asynchronous, so a phase
         # charges its enqueue time unless BABBLE_ENGINE_TIMERS=1 makes
-        # each mark synchronise first; the frontier synchronises every
-        # round either way.
+        # each mark synchronise first (_mark; read once a pass, in
+        # _stage_pass_on_stream); the frontier synchronises every round
+        # either way.
         self.phase_ns: dict = {}
         # Bytes of the last commit-delta pull.
         self.c_pull_bytes = 0
@@ -889,17 +847,10 @@ class IncrementalEngine:
         return t.pin_memory().to(dev, non_blocking=True)
 
     def shards(self, name: str) -> List[torch.Tensor]:
-        """The shards of a device carry ("_la", "_chain_la", "_ranks",
-        ...), in column or chain order: d tensors under a mesh, the one
-        tensor otherwise."""
-        t = getattr(self, name)
-        return list(t) if isinstance(t, list) else [t]
-
-    def _shard_rows(self):
-        """(device, lo, hi) of each shard: its devices and its chains
-        (or columns) [lo, hi)."""
-        w = self.n // len(self._mesh)
-        return [(d, p * w, (p + 1) * w) for p, d in enumerate(self._mesh)]
+        """The parts of a sharded device carry ("_la", "_chain_la",
+        "_ranks", ...), in column or chain order: d tensors, the whole
+        table at d = 1."""
+        return list(getattr(self, name))
 
     # -- append ------------------------------------------------------------
 
@@ -1057,11 +1008,11 @@ class IncrementalEngine:
     @property
     def _cap_dev(self) -> int:
         """Device-side event capacity, derived from the carry shapes."""
-        return self.shards("_la")[0].shape[0] - 1
+        return self._la[0].shape[0] - 1
 
     @property
     def _kcap_dev(self) -> int:
-        return self.shards("_chain_d")[0].shape[1]
+        return self._chain_d[0].shape[1]
 
     def _sync_device(self, cap_t: Optional[int] = None,
                      kcap_t: Optional[int] = None) -> None:
@@ -1076,7 +1027,7 @@ class IncrementalEngine:
             kcap_t = self.kcap
         while self._cap_dev < cap_t:
             rows = self._cap_dev  # double
-            self._la = _each(self._la, _pad_rows, rows=rows, fill=-1)
+            self._la = [_pad_rows(t, rows=rows, fill=-1) for t in self._la]
             self._rb = _pad_rows(self._rb, rows=rows, fill=-1)
             self._sp_d = _pad_rows(self._sp_d, rows=rows, fill=-1)
             self._op_d = _pad_rows(self._op_d, rows=rows, fill=-1)
@@ -1090,20 +1041,15 @@ class IncrementalEngine:
             self._rr_d = _pad_rows(self._rr_d, rows=rows, fill=-1)
         while self._kcap_dev < kcap_t:
             cols = self._kcap_dev  # double
-            if self._mesh is None:
-                self._ranks = _pad_ranks(
-                    self._ranks, self._upload(self._len_counted), cols=cols)
-            else:  # each shard pads with its own chains' counted lengths
-                self._ranks = [
-                    _pad_ranks(r, self._upload(self._len_counted[lo:hi], d), cols=cols)
-                    for r, (d, lo, hi) in zip(self._ranks, self._shard_rows())]
-            self._chain_la = _each(self._chain_la, _pad_cols, cols=cols,
-                                   fill=INT32_MAX, axis=1)
-            self._chain_d = _each(self._chain_d, _pad_cols, cols=cols, fill=-1)
-            self._chain_th = _each(self._chain_th, _pad_cols, cols=cols, fill=0)
-            self._chain_tl = _each(self._chain_tl, _pad_cols, cols=cols, fill=0)
-            self._chain_rb = _each(self._chain_rb, _pad_cols, cols=cols,
-                                   fill=INT32_MAX)
+            # each part pads with its own chains' counted lengths
+            counted = self._layout.upload(self._len_counted, self._upload)
+            self._ranks = [_pad_ranks(r, c, cols=cols)
+                           for r, c in zip(self._ranks, counted)]
+            for name, fill, axis in (("_chain_la", INT32_MAX, 1), ("_chain_d", -1, -1),
+                                     ("_chain_th", 0, -1), ("_chain_tl", 0, -1),
+                                     ("_chain_rb", INT32_MAX, -1)):
+                setattr(self, name, [_pad_cols(t, cols=cols, fill=fill, axis=axis)
+                                     for t in getattr(self, name)])
 
     def _ingest_batch(self, e: int, chain_len0: np.ndarray):
         """Stage the events appended since the last fold into the device
@@ -1152,23 +1098,17 @@ class IncrementalEngine:
             newtab[c, : l1 - l0] = ids
             newpos[c, : l1 - l0] = np.arange(l0, l1)
             newhi[c, : l1 - l0], newlo[c, : l1 - l0] = _ts_split(ts_h[ids])
+        # The table goes up once, whole on the controller, for the fd
+        # fold; each chain part scatters its own chains' rows only.
+        layout = self._layout
         self._newtab_d = self._upload(newtab)
         self._new_m = m
-        if self._mesh is None:
-            self._newpos_d = self._upload(newpos)
-            _chain_ingest(self._chain_d, self._chain_th, self._chain_tl,
-                          self._newtab_d, self._newpos_d, self._upload(newhi),
-                          self._upload(newlo), n=n, m=m)
-            return
-        # Each chain shard scatters its own chains' rows only.
-        self._newpos_d = []
-        for p, (d, lo, hi) in enumerate(self._shard_rows()):
-            pos_p = self._upload(newpos[lo:hi], d)
-            self._newpos_d.append(pos_p)
-            _chain_ingest(self._chain_d[p], self._chain_th[p], self._chain_tl[p],
-                          self._upload(newtab[lo:hi], d), pos_p,
-                          self._upload(newhi[lo:hi], d), self._upload(newlo[lo:hi], d),
-                          n=hi - lo, m=m)
+        self._newpos_d = layout.upload(newpos, self._upload)
+        for parts in zip(self._chain_d, self._chain_th, self._chain_tl,
+                         split_chains(self._newtab_d, self._chain_d), self._newpos_d,
+                         layout.upload(newhi, self._upload),
+                         layout.upload(newlo, self._upload)):
+            _chain_ingest(*parts, n=layout.w, m=m)
 
     def run(self, *, unlocked=None) -> RunDelta:
         """One synchronous incremental consensus pass: dispatch() +
@@ -1318,6 +1258,19 @@ class IncrementalEngine:
             with self._on_stream():
                 self._stage_pass_on_stream(pp)
 
+    def _mark(self, pp: PendingPass, name: str, start: int) -> int:
+        """Charge the wall time from `start` to now to phase_ns[name] and
+        to the pass's `engine.<name>` span, and return now. It adds to
+        the phase: the stage starts from an empty dict, and a redone
+        dispatch adds to the first. With pp.timed it waits for the
+        device first."""
+        if pp.timed:
+            self._sync()
+        now = time.perf_counter_ns()
+        self.phase_ns[name] = self.phase_ns.get(name, 0) + now - start
+        self.trace.record("engine." + name, start, now, cat="engine", pass_id=pp.pass_id)
+        return now
+
     def _stage_pass_on_stream(self, pp: PendingPass) -> None:
         n = self.n
         new_ids = pp.new_ids
@@ -1325,21 +1278,12 @@ class IncrementalEngine:
         cap0, k0 = pp.cap0, pp.k0
         chain_len0 = pp.chain_len0
         _t = time.perf_counter_ns
-        _phase_start = _t()
         self.phase_ns = {}
         # Timers synchronise only when asked: a synchronised mark stalls
-        # the staging pipeline.
-        sync_timers = os.environ.get("BABBLE_ENGINE_TIMERS") == "1"
-
-        def _mark(name):
-            nonlocal _phase_start
-            if sync_timers:
-                self._sync()
-            now = _t()
-            self.phase_ns[name] = now - _phase_start
-            self.trace.record("engine." + name, _phase_start, now, cat="engine",
-                              pass_id=pp.pass_id)
-            _phase_start = now
+        # the staging pipeline. Read here, once a pass, for every mark of
+        # the pass, its redone dispatches' included.
+        pp.timed = os.environ.get("BABBLE_ENGINE_TIMERS") == "1"
+        t_mark = _t()
 
         # 0. Device sync-up: lazy capacity growth, then the new batch
         # into the resident event columns and chain tables.
@@ -1356,26 +1300,20 @@ class IncrementalEngine:
                         pp.idx_d, self._rb0_d, self._frozen_blocks, nb,
                         n=n, block=self.block)
         self._frozen_blocks = e // self.block
-        if self._mesh is None:
-            pp.la = self._la[:cap0]
-        else:
-            pp.la = ColumnShards([t[:cap0] for t in self._la], self.device)
+        pp.la = [t[:cap0] for t in self._la]
         pp.rb = self._rb[:cap0]
-        _mark("coords")
+        t_mark = self._mark(pp, "coords", t_mark)
 
         # 2. Fold the batch into the resident rank cube; fd is read as
         # row gathers from it inside the epilogue (_FdRows).
         if self._e_counted < e:
-            if self._mesh is None:
-                _tables_update_hist(
-                    self._ranks, self._chain_la, self._chain_rb,
-                    self._la, self._rb, self._newtab_d, self._newpos_d,
-                    n=n, m=self._new_m)
-            else:
-                self._fold_shards()
+            _tables_update_hist(
+                self._ranks, self._chain_la, self._chain_rb,
+                self._la, self._rb, self._newtab_d, self._newpos_d,
+                n=n, m=self._new_m)
             self._e_counted = e
             self._len_counted = chain_len0.copy()
-        _mark("fd_fold")
+        t_mark = self._mark(pp, "fd_fold", t_mark)
 
         # 3-6. Frontier, new-event rounds, fame and round received in
         # one epilogue with one packed pull (_consensus_fused).
@@ -1455,29 +1393,9 @@ class IncrementalEngine:
         cd0 = self.phase_ns.get("c_dispatch", 0)
         self._dispatch_fused(pp)
         self.phase_ns["stage"] = (
-            self.phase_ns.get("stage", 0) + _t() - _phase_start
+            self.phase_ns.get("stage", 0) + _t() - t_mark
             - (self.phase_ns.get("c_dispatch", 0) - cd0))
         pp.dispatched_ns = _t()
-
-    def _fold_shards(self) -> None:
-        """The fd fold under a mesh: the batch's la rows gathered
-        whole-width from the column shards ([n, m, n], batch-sized: the
-        pass's one exchange outside the epilogue), then each chain
-        shard writes its chains' chain_la/chain_rb rows and folds its
-        slice of the rank cube, as _tables_update_hist does."""
-        la = ColumnShards(self._la, self.device)
-        newtab = self._newtab_d
-        valid = newtab >= 0
-        ids = torch.where(valid, newtab, la.shape[0] - 1)  # sentinel row, masked
-        la_eff = torch.where(valid[:, :, None], la[ids], INT32_MAX)
-        rb_eff = torch.where(valid, self._rb[ids], INT32_MAX)
-        k = self._kcap_dev
-        for p, (d, lo, hi) in enumerate(self._shard_rows()):
-            la_p = la_eff[lo:hi].to(d)
-            _write_chain_rows(self._chain_la[p], self._chain_rb[p], la_p,
-                              rb_eff[lo:hi].to(d), valid[lo:hi].to(d),
-                              self._newpos_d[p], k=k)
-            _fold_ranks(self._ranks[p], la_p)
 
     def _dispatch_fused(self, pp: PendingPass) -> None:
         """Build the window tables from host bookkeeping and enqueue the
@@ -1501,18 +1419,11 @@ class IncrementalEngine:
             in_list_rel[t] = rho in pp.undecided_set
         pp.tw_i = min(pp.tw, rcap)
         pp.t_start = min(pp.t0, rcap - pp.tw_i)
-        sync_timers = os.environ.get("BABBLE_ENGINE_TIMERS") == "1"
         t_stage = last = time.perf_counter_ns()
 
         def mark(name):
             nonlocal last
-            if sync_timers:
-                self._sync()
-            now = time.perf_counter_ns()
-            self.phase_ns[name] = self.phase_ns.get(name, 0) + now - last
-            self.trace.record("engine." + name, last, now, cat="engine",
-                              pass_id=pp.pass_id)
-            last = now
+            last = self._mark(pp, name, last)
 
         def on_fame(t_fame, rows, steps):
             # inside engine.fame_rr's interval
@@ -1589,13 +1500,9 @@ class IncrementalEngine:
             "chain_capacity": self.kcap,
             "n": self.n,
         }
-        # A mesh's shards may share a card: the budget multiplies by the
-        # distinct devices, not the shards.
-        devices = 1
-        if self._mesh is not None:
-            devices = len(set(self._mesh))
-            out["mesh_shards"] = len(self._mesh)
-            out["mesh_devices"] = devices
+        # A mesh's parts may share a card: the budget multiplies by the
+        # distinct devices, not the parts.
+        out.update(self._layout.stats())
         if self.device.type != "cuda":
             return out
         try:
@@ -1606,7 +1513,8 @@ class IncrementalEngine:
         except Exception:  # noqa: BLE001 - a scrape must not fail
             budget = 0
         if budget and dev > 0:
-            out["projected_max_peers"] = int(self.n * ((budget * devices) / dev) ** 0.5)
+            out["projected_max_peers"] = int(
+                self.n * ((budget * self._layout.cards) / dev) ** 0.5)
         return out
 
     def _collect_pass(self, pp: PendingPass, unlocked) -> RunDelta:

@@ -1859,6 +1859,7 @@ def node_core_script(device, engine_mesh=0):
 
     from babble_tpu_torch.hashgraph import Event, InmemStore
     from babble_tpu_torch.node import Core
+    from babble_tpu_torch.node.ingest import active_backend
 
     steps, seed, every = NODE_SCRIPT
     keys, pubs = node_keys(NODE_N)
@@ -1935,8 +1936,10 @@ def node_core_script(device, engine_mesh=0):
         "host_cores_prefix": all(prefix_equal(order, c.get_consensus_events())
                                  for c in cores[1:]),
         "p256_launched": verify_launches > 0,
-        "verify_on_device": verify_phase[2] > 0 and not any(
-            ph.startswith("verify_") and ph != "verify_device-p256" for ph in dev.phase_ns),
+        # no sync verified by the host backend; the Core's verify_*
+        # counters (prelude, window tables, signatures) are not backends
+        "verify_on_device": (verify_phase[2] > 0
+                             and "verify_" + active_backend(False) not in dev.phase_ns),
         "shards": shards == max(engine_mesh, 1),
     }
     if engine_mesh > 1:

@@ -427,7 +427,7 @@ def test_memory_stats_prewarm_and_left_out_parts():
     where there is none."""
     eng = tinc.IncrementalEngine(4, device="cpu", **SMALL)
     stats = eng.device_memory_stats()
-    assert stats["device_bytes"] >= eng._chain_la.numel() * 4
+    assert stats["device_bytes"] >= eng.shards("_chain_la")[0].numel() * 4
     assert stats["host_mirror_bytes"] > 0 and stats["n"] == 4
     assert "mesh_shards" not in stats
     assert eng.prewarm() is True
@@ -435,7 +435,8 @@ def test_memory_stats_prewarm_and_left_out_parts():
     with pytest.raises(ValueError, match="divide"):
         tinc.IncrementalEngine(4, mesh=["cpu"] * 3, device="cpu")
     one = tinc.IncrementalEngine(4, mesh=["cpu"], **SMALL)
-    assert one._mesh is None and isinstance(one._la, torch.Tensor)
+    assert [t.shape for t in one.shards("_la")] == [(one.cap + 1, 4)]
+    assert "mesh_shards" not in one.device_memory_stats()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tinc.IncrementalEngine(4)

@@ -60,17 +60,22 @@ def _fold_case(n, m, k, cap, seed):
     return ranks, chain_la, chain_rb, la, rb, newtab, newpos
 
 
-@pytest.mark.parametrize("n,m,k,cap,seed", [(4, 3, 8, 32, 0), (8, 16, 16, 64, 1),
-                                             (5, 16, 32, 40, 2)])
-def test_tables_update_hist(n, m, k, cap, seed):
+@pytest.mark.parametrize("n,m,k,cap,seed,d", [(4, 3, 8, 32, 0, 1), (8, 16, 16, 64, 1, 1),
+                                               (5, 16, 32, 40, 2, 1), (8, 16, 16, 64, 1, 4)])
+def test_tables_update_hist(n, m, k, cap, seed, d):
+    """The fold over the tables' parts (d = 1: the whole tables; d = 4:
+    four chain parts of the cube and chain tables, four column parts of
+    la) equals the JAX fold."""
     args = _fold_case(n, m, k, cap, seed)
     want = jinc._tables_update_hist(*map(J, args), n=n, m=m)
-    targs = list(map(T, args))
-    got = tinc._tables_update_hist(*targs, n=n, m=m)
+    ranks, chain_la, chain_rb, la, rb, newtab, newpos = map(T, args)
+    parts = [list(t.split(n // d, 0)) for t in (ranks, chain_la, chain_rb)]
+    got = tinc._tables_update_hist(*parts, list(la.split(n // d, 1)), rb, newtab,
+                                   list(newpos.split(n // d, 0)), n=n, m=m)
     for g, w in zip(got, want):
-        assert np.array_equal(g.numpy(), np.asarray(w))
+        assert np.array_equal(torch.cat(g, 0).numpy(), np.asarray(w))
     # in place on the resident carries, as the JAX package donates them
-    assert got[0] is targs[0] and got[1] is targs[1] and got[2] is targs[2]
+    assert all(g is p for got_t, p_t in zip(got, parts) for g, p in zip(got_t, p_t))
 
 
 @pytest.mark.parametrize("n,m,k,seed", [(4, 3, 8, 0), (6, 10, 8, 1)])
@@ -121,15 +126,17 @@ def test_fd_from_ranks_and_row_view(n, k, cap, seed):
     ranks, chain_len, creator, index = _ranks_case(n, k, cap, seed)
     want = np.asarray(jinc._fd_from_ranks(J(ranks), J(chain_len), J(creator),
                                           J(index), n=n))
-    got = tinc._fd_from_ranks(T(ranks), T(chain_len), T(creator), T(index), n=n)
-    assert np.array_equal(got.numpy(), want)
     assert (want == INT32_MAX).any() and (want < INT32_MAX).any()
-    view = tinc._FdRows(T(ranks), T(chain_len), T(creator), T(index))
     jview = jinc._FdRows(J(ranks), J(chain_len), J(creator), J(index))
     ids = np.random.default_rng(seed).integers(0, cap, (3, 5)).astype(np.int32)
-    rows = view[T(ids)].numpy()
-    assert np.array_equal(rows, np.asarray(jview[J(ids)]))
-    assert np.array_equal(rows, want[ids])
+    # the whole cube as one part, and (n = 4) in two chain parts
+    for d in [d for d in (1, 2) if n % d == 0]:
+        view = tinc._FdRows(list(T(ranks).split(n // d, 0)), T(chain_len), T(creator),
+                            T(index))
+        rows = view[T(ids)].numpy()
+        assert np.array_equal(rows, np.asarray(jview[J(ids)])), d
+        assert np.array_equal(rows, want[ids]), d
+        assert np.array_equal(view[torch.arange(cap)].numpy(), want), d  # every row
 
 
 def test_median_pairs_matches_two_key_sort():
@@ -176,7 +183,7 @@ def _rank_view(dag, la):
                            INT32_MAX)
     ts = torch.arange(k, dtype=torch.int32)
     ranks = (chain_la[:, :, :, None] < ts).sum(1, dtype=torch.int32)  # [n, n, K]
-    view = tinc._FdRows(ranks, chain_len, T(dag.creator), T(dag.index))
+    view = tinc._FdRows([ranks], chain_len, T(dag.creator), T(dag.index))
     dense = tk.compute_first_descendants(
         la, T(dag.creator), T(dag.index), chain, chain_len, n=n)
     return view, dense

@@ -20,7 +20,8 @@ one CPU device. Tolerance: exact equality.
 - a spy on the strongly-see wrapper: the frontier probe runs once per
   chain shard on that shard's own chain_la rows, and no launch reads a
   partial column slice (every operand is n wide);
-- the mesh helpers against dense tensors.
+- the mesh helpers against dense tensors, and the layout: one part is
+  the bare table, with no copy.
 
 The strongly-see launches take their plain versions on the CPU."""
 
@@ -40,8 +41,9 @@ from babble_tpu_torch.hashgraph import InmemStore
 from babble_tpu_torch.node import Core
 from babble_tpu_torch.ops import hopper_kernels
 from babble_tpu_torch.ops import incremental as tinc
-from babble_tpu_torch.ops.mesh import (ColumnShards, count_below, engine_mesh_devices,
-                                       mesh_devices, take_chains)
+from babble_tpu_torch.ops.mesh import (ColumnShards, Layout, chain_view, column_view,
+                                       count_below, engine_mesh_devices, gather_chains,
+                                       mesh_devices, split_chains, take_chains, take_tables)
 
 from test_torch_incremental import SMALL, delta, feed
 from test_torch_node_core import keyed
@@ -91,7 +93,8 @@ def assert_state(t, j):
 
 def assert_partitioned(eng, single, d):
     for name in SHARDED:
-        total = getattr(single, name).numel()
+        (whole,) = single.shards(name)
+        total = whole.numel()
         sizes = [t.numel() for t in eng.shards(name)]
         assert len(sizes) == d, name
         assert max(sizes) < total, f"{name} is whole on a shard"
@@ -154,7 +157,7 @@ def test_node_engine_mesh_gossip():
     nodes = make_nodes(["torch"] * 4, engine_mesh=4)
     for node in nodes:
         eng = node.core.hg.engine
-        assert eng._mesh is not None and len(eng.shards("_la")) == 4
+        assert len(eng._mesh) == 4 and len(eng.shards("_la")) == 4
     run_gossip(nodes, target_round=3)
     check_gossip(nodes)
 
@@ -233,6 +236,64 @@ def test_mesh_helpers_match_dense():
     assert torch.equal(count_below(parts, 5, "cpu"), (tab < 5).sum(1, dtype=torch.int32))
     devs = mesh_devices([["cpu", "meta"], ["cpu", "meta"]])
     assert [dv.type for dv in devs] == ["cpu", "meta", "cpu", "meta"]
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_layout_and_part_reads_match_dense(d):
+    """Layout cuts n = 8 chains (columns) into d parts, allocates and
+    uploads by them, and names the mesh in the memory stats only for
+    d > 1; column_view, chain_view, split_chains, gather_chains and
+    take_tables on d parts equal the dense reads, and on one part they
+    are the bare table itself, with no concatenation or copy."""
+    rng = np.random.default_rng(d)
+    n, rows, k = 8, 20, 6
+    cpu = torch.device("cpu")
+    layout = Layout(n, ["cpu"] * d) if d > 1 else Layout(n, device="cpu")
+    assert layout.devices == [cpu] * d and layout.w == n // d
+    assert [t.shape for t in layout.columns(rows, -1)] == [(rows, n // d)] * d
+    assert [t.shape for t in layout.chains((k, n), 0)] == [(n // d, k, n)] * d
+    host = rng.integers(0, 9, (n, k)).astype(np.int32)
+    up = layout.upload(host, lambda a, dev: torch.from_numpy(a.copy()).to(dev))
+    assert np.array_equal(torch.cat(up).numpy(), host) and len(up) == d
+    assert [t.shape[0] for t in up] == [n // d] * d
+    assert layout.stats() == ({} if d == 1 else {"mesh_shards": d, "mesh_devices": 1})
+    assert layout.cards == 1
+
+    la = torch.from_numpy(rng.integers(-1, 50, (rows, n)).astype(np.int32))
+    col_parts = list(la.split(n // d, 1))
+    ids = torch.from_numpy(rng.integers(0, rows, (3, 5)).astype(np.int32))
+    view = column_view(col_parts, cpu)
+    assert torch.equal(view[ids], la[ids])
+    tab = torch.from_numpy(rng.integers(0, 9, (n, k)).astype(np.int32))
+    tab2 = tab * 3 - 1
+    parts, parts2 = list(tab.split(n // d, 0)), list(tab2.split(n // d, 0))
+    pos = torch.from_numpy(rng.integers(0, k, (7, n)))
+    lanes = torch.arange(n)[None, :]
+    got, got2 = take_tables((parts, parts2), pos)
+    assert torch.equal(got, tab[lanes, pos]) and torch.equal(got2, tab2[lanes, pos])
+    split = split_chains(pos.T.contiguous(), parts)
+    assert torch.equal(torch.cat(split), pos.T)
+    cube = torch.from_numpy(rng.integers(0, 9, (n, n, k)).astype(np.int32))
+    ca = torch.from_numpy(rng.integers(0, n, (4,)))
+    ia = torch.from_numpy(rng.integers(0, k, (4,)))
+    rows_of = gather_chains(list(cube.split(n // d, 0)),
+                            lambda r, c, i: torch.movedim(r[:, c, i], 0, -1), ca, ia)
+    assert torch.equal(rows_of, torch.movedim(cube[:, ca, ia], 0, -1))
+    if d == 1:
+        assert view is col_parts[0] and chain_view(parts) is parts[0]
+        assert split_chains(pos, parts)[0] is pos
+    else:
+        assert isinstance(view, ColumnShards) and chain_view(parts) == parts
+
+
+def test_layout_refuses_what_the_engine_refuses():
+    """A mesh the participants do not divide over, and a device that is
+    not the mesh's first, raise; a one-device mesh is one part."""
+    with pytest.raises(ValueError, match="divide"):
+        Layout(4, ["cpu"] * 3)
+    with pytest.raises(ValueError, match="first device"):
+        Layout(4, ["cpu", "cpu"], device="meta")
+    assert Layout(4, ["cpu"]).stats() == {} and Layout(4, ["cpu"]).w == 4
 
 
 def test_mesh_cost_report_memory_stats_and_prewarm():
